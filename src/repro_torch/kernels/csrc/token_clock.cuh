@@ -1,0 +1,39 @@
+// Token-clock grant shared by the standalone token_clock_update kernel and
+// the fused scheduler step (sched_step.cu).
+//
+// One grant admits a request at `submit` against the clocks of one cell:
+//   at_dev  = sum over devices of (mask ? clock : 0)   (one-hot mask: the
+//             selected device's clock; empty mask: 0.0, which never gates
+//             because simulated time is non-negative)
+//   svc     = spacing > 0 ? max(submit, at_dev) : submit
+//   clock_s = spacing > 0 && mask_s ? svc + spacing : clock_s
+// The device mask is a bit set (bit s = device s), so S <= TC_MAX_DEVICES.
+// Compiled with -fmad=false: svc + spacing must not contract with anything.
+#pragma once
+#include <cstdint>
+
+#define TC_MAX_DEVICES 64
+
+__device__ __forceinline__ double tc_grant(double submit, double* clocks,
+                                           int n_dev, uint64_t mask,
+                                           double spacing) {
+  if (!(spacing > 0.0)) return submit;
+  double at_dev = 0.0;
+  for (int s = 0; s < n_dev; ++s)
+    at_dev = at_dev + (((mask >> s) & 1ull) ? clocks[s] : 0.0);
+  const double svc = fmax(submit, at_dev);
+  const double next = svc + spacing;
+  for (int s = 0; s < n_dev; ++s)
+    if ((mask >> s) & 1ull) clocks[s] = next;
+  return svc;
+}
+
+// IOPS clock first, then bandwidth: the bandwidth grant sees the
+// IOPS-delayed service time.
+__device__ __forceinline__ double tc_update(double submit, double* tok,
+                                            double* bw, int n_dev,
+                                            uint64_t mask, double inv_r,
+                                            double cost_bw) {
+  double svc = tc_grant(submit, tok, n_dev, mask, inv_r);
+  return tc_grant(svc, bw, n_dev, mask, cost_bw);
+}
