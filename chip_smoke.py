@@ -9,14 +9,15 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc/`` with
 ``nvcc``, holds each kernel against its plain PyTorch version on the card,
 drives the port's main path -- one ``Scenario`` through ``Experiment.run``
 with every scalar-latency grid cell stepped by the fused CUDA kernel -- at
-real size, checks the results against the host interpreter loop, times the
-kernels, and prints one JSON object per phase.  The last line is
+real size, drives the plain-step path (which launches the standalone
+token-clock kernel) on one cohort of the same grid in a counted window of its
+own, checks the results against the host interpreter loop, times the kernels,
+and prints one JSON object per phase.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failing phase exits non-zero; there
 is no CPU fallback: without a CUDA device the script fails.
 """
 import json
 import math
-import os
 import subprocess
 import sys
 import time
@@ -25,6 +26,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT / "tests"))     # the kernel-vs-plain check cases
 
 import numpy as np
 import torch
@@ -37,9 +39,11 @@ from repro_torch.core.engines import run_trace
 from repro_torch.core.experiment import Experiment, RunOptions, Scenario
 from repro_torch.core.sim import generate_arrivals, simulate_compiled
 from repro_torch.core.sim import replay_torch as rt
-from repro_torch.kernels import _build, selfcheck
+from repro_torch.kernels import _build
 from repro_torch.kernels import sched_step as sk
 from repro_torch.kernels import token_clock as tc
+
+import _torch_kernel_cases as cases
 
 US = 1e-6
 DEV = torch.device("cuda", 0)
@@ -53,6 +57,22 @@ CANDS = (8, 16, 32, 64)
 # float64 rate outside the tensor cores (half the 67 TFLOP/s float32 rate).
 HBM_BYTES_PER_S = 3.35e12
 F64_FLOP_PER_S = 33.5e12
+
+# The serial chain of one scheduler step, as a model (assumed cycle counts,
+# not measured here): the least latency of the operations that the next
+# step's clock depends on -- the ring pop (key select, then 5 warp-shuffle
+# rounds of a 64-bit min), the popped thread's row from shared memory, the
+# span unpacking, one gather of its suboperation from the trace table (an L2
+# hit) and the float64 operations from there to ``now + T_sw``.
+CHAIN = {"shuffle_rounds": 5, "cycles_per_shuffle_round": 25,
+         "shared_loads": 1, "cycles_per_shared_load": 30,
+         "l2_gathers": 1, "cycles_per_l2_gather": 200,
+         "f64_ops": 11, "cycles_per_f64_op": 8}
+CHAIN_CYCLES = sum(CHAIN[n] * CHAIN[c] for n, c in (
+    ("shuffle_rounds", "cycles_per_shuffle_round"),
+    ("shared_loads", "cycles_per_shared_load"),
+    ("l2_gathers", "cycles_per_l2_gather"),
+    ("f64_ops", "cycles_per_f64_op")))
 
 OUT_DIR = ROOT / "chiprun_out"
 PHASES = []
@@ -101,10 +121,17 @@ def phase_card():
     if smi.returncode != 0:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
-    emit("card", card=card, torch=torch.__version__, cuda=torch.version.cuda,
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    if clk.returncode != 0:
+        fail(f"nvidia-smi failed: {clk.stderr.strip()}")
+    sm_mhz = float(clk.stdout.strip().splitlines()[0])
+    emit("card", card=card, sm_clock_max_mhz=sm_mhz, torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0],
          sm_count=torch.cuda.get_device_properties(0).multi_processor_count)
-    return card
+    return card, sm_mhz
 
 
 def phase_build():
@@ -166,17 +193,18 @@ def phase_token_clock(G, S):
 def phase_fused_flag_sets(trace):
     """The fused CUDA step against the plain version on the card: every flag
     set, same init state, same injected uniforms, every plane bit-equal (the
-    histogram under the adjacent-bin rule)."""
+    histogram under the adjacent-bin rule).  The plain version grants
+    through ``token_clock_update_ref``: it runs neither CUDA kernel."""
     worst, sets = 0.0, {}
-    for name in sorted(selfcheck.FLAG_SETS):
-        case = selfcheck.make_case(trace, selfcheck.FLAG_SETS[name], 17,
+    for name in sorted(cases.FLAG_SETS):
+        case = cases.make_case(trace, cases.FLAG_SETS[name], 17,
                                    n_steps=192)
-        plain = selfcheck.run_plain(case, DEV)
-        fused = selfcheck.run_fused(case, DEV)
-        blocks = selfcheck.run_fused(case, DEV, block=64)
+        plain = cases.run_plain(case, DEV)
+        fused = cases.run_fused(case, DEV)
+        blocks = cases.run_fused(case, DEV, block=64)
         torch.cuda.synchronize()
-        ok, err, bad = selfcheck.states_agree(plain, fused, case["has_lat"])
-        ok2, err2, bad2 = selfcheck.states_agree(fused, blocks, False)
+        ok, err, bad = cases.states_agree(plain, fused, case["has_lat"])
+        ok2, err2, bad2 = cases.states_agree(fused, blocks, False)
         worst = max(worst, err, err2)
         sets[name] = bool(ok and ok2)
         if not (ok and ok2):
@@ -186,12 +214,12 @@ def phase_fused_flag_sets(trace):
         if int(fused[1][:, 2].min()) <= 0:
             fail(f"flag set {name!r}: no op completed in the self-check")
     # a wider cell layout: more than one slot per lane, odd thread counts
-    case = selfcheck.make_case(trace, selfcheck.FLAG_SETS["rio+bio-2ssd"], 23,
+    case = cases.make_case(trace, cases.FLAG_SETS["rio+bio-2ssd"], 23,
                                latencies=(0.5 * US, 2 * US, 9 * US),
                                candidates=(5, 40, 70), P=12, n_ops=60,
                                n_steps=256)
-    ok, err, bad = selfcheck.states_agree(
-        selfcheck.run_plain(case, DEV), selfcheck.run_fused(case, DEV), False)
+    ok, err, bad = cases.states_agree(
+        cases.run_plain(case, DEV), cases.run_fused(case, DEV), False)
     sets["wide-T70-P12"] = bool(ok)
     if not ok:
         fail(f"fused_steps disagrees on the wide layout: plane {bad}, "
@@ -208,45 +236,29 @@ def scenario(n_lats, cands, **over):
 
 
 def phase_main_path():
-    """The port's main path at real size, both legs inside one counted
-    window: (1) ``Experiment.run`` with the default options -- device cuda,
-    fused kernel; (2) the same entry point with ``use_kernel=False`` on a
-    cut grid -- the plain step on the card, which launches the standalone
-    token-clock kernel once per step -- held bit-identical to the fused
-    kernel's rows for the same cells."""
+    """The port's main path at real size: ``Experiment.run`` with the
+    default options -- device cuda, every cell stepped by the fused kernel.
+    The counts are set to 0 just before the run and read just after."""
     sc = scenario(N_LATS, CANDS)
     t0 = time.perf_counter()
     warm = Experiment(sc).run()                 # warm-up (trace + first use)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
 
-    sc_cut = scenario(2, (8,), n_ops=400)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
     art = Experiment(sc).run()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    fused_launches = sk.fused_steps.launches
-    t1 = time.perf_counter()
-    art_plain = Experiment(sc_cut, RunOptions(use_kernel=False)).run()
-    torch.cuda.synchronize()
-    plain_leg_s = time.perf_counter() - t1
     launches = {"fused_steps": sk.fused_steps.launches,
                 "token_clock_update": tc.token_clock_update.launches}
     peak = torch.cuda.max_memory_allocated()
-    if sk.fused_steps.launches != fused_launches:
-        fail("the plain-step leg launched the fused kernel")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched on the main path")
-
-    # the cut grid again through the fused kernel: bit-identical rows
-    art_cut = Experiment(sc_cut).run()
-    for a, b in zip(art_plain.rows, art_cut.rows):
-        if a.per_thread != b.per_thread or a.throughput != b.throughput:
-            fail(f"plain-step leg and fused kernel disagree on the cut grid "
-                 f"at L={a.L_us}us: {a.per_thread} vs {b.per_thread}")
+    if launches["fused_steps"] <= 0:
+        fail("kernel fused_steps was not launched on the main path")
+    if launches["token_clock_update"] != 0:
+        fail("the main path launched the standalone token-clock kernel: the "
+             "fused kernel is meant to inline the grant")
 
     # every cell counted its n_ops: sweep_grid raises otherwise; re-derive
     # the grid here for the step counts and a direct check
@@ -271,16 +283,54 @@ def phase_main_path():
          n_latencies=N_LATS, thread_candidates=list(CANDS), n_ops=sc.n_ops,
          trace_ops=int(tr.n_ops), trace_subops=int(tr.n_subops),
          cut="none", warmup_wall_s=warm_s, wall_s=wall_s,
-         grid_wall_s=grid_wall_s,
-         plain_leg_wall_s=plain_leg_s, plain_leg_cells=2,
-         launches=launches, cell_steps_run=int(grid.cell_steps_run),
+         grid_wall_s=grid_wall_s, launches=launches,
+         token_clock_note="0 by design: on this path the grant runs inside "
+                          "sched_step.cu as the shared __device__ function; "
+                          "the standalone kernel is driven by "
+                          "plain_step_path",
+         cell_steps_run=int(grid.cell_steps_run),
          cell_steps_bound=int(grid.cell_steps_bound),
          cell_steps_per_s=grid.cell_steps_run / grid_wall_s,
          peak_device_bytes=int(peak), all_cells_counted_n_ops=True,
-         plain_leg_bit_identical_to_fused=True,
          best_threads_first_last=[art.rows[0].n_threads,
                                   art.rows[-1].n_threads])
     return sc, art, launches
+
+
+def phase_plain_step_path(art):
+    """The port's other path on the card, in a counted window of its own:
+    the same entry point with ``use_kernel=False`` steps the grid with the
+    plain PyTorch body, which launches the standalone token-clock kernel
+    once per step.  One cohort of the main path's grid at its full shape
+    (all 128 latencies x 8 threads = 128 cells, the whole trace, n_ops
+    uncut); the rows must be bit-identical to the fused kernel's."""
+    cand = CANDS[0]
+    sc_plain = scenario(N_LATS, (cand,))
+    reset_counts()
+    t0 = time.perf_counter()
+    art_plain = Experiment(sc_plain, RunOptions(use_kernel=False)).run()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {"fused_steps": sk.fused_steps.launches,
+                "token_clock_update": tc.token_clock_update.launches}
+    if launches["fused_steps"] != 0:
+        fail("the plain-step path launched the fused kernel")
+    if launches["token_clock_update"] <= 0:
+        fail("kernel token_clock_update was not launched on the plain-step "
+             "path")
+    for a, b in zip(art_plain.rows, art.rows):
+        got, want = dict(a.per_thread)[cand], dict(b.per_thread)[cand]
+        if a.L_us != b.L_us or got != want:
+            fail(f"plain-step path and fused kernel disagree at L={a.L_us}us, "
+                 f"{cand} threads: {got} vs {want}")
+    emit("plain_step_path", scenario=sc_plain.display_name,
+         cells=len(art_plain.rows), n_latencies=N_LATS,
+         thread_candidates=[cand], n_ops=sc_plain.n_ops,
+         cut="threads (8) only: one of the main path's four cohorts",
+         wall_s=wall_s, launches=launches,
+         steps_per_cell=launches["token_clock_update"],
+         bit_identical_to_fused_rows=True)
+    return launches
 
 
 def phase_agreement(sc, art):
@@ -353,20 +403,41 @@ def phase_agreement(sc, art):
                     "p50_tol": 0.10, "p99_tol": 0.25})
 
 
-def phase_timing(sc, art):
+def gathered_rows(c, ci_before, ci_after):
+    """``(kd_rows, se_rows)``: the distinct rows of the trace tables that one
+    launch can have read, from the cells' cursors before and after it.  A
+    cell reads ``se`` at every cursor position it passes, and ``kd`` for the
+    suboperations of the ops its threads held at the start or fetched."""
+    n = c.n_trace
+    se = c.se[:n].cpu().numpy()
+    ops_len = (se[:, 1] - se[:, 0]).astype(np.int64)
+    held = (c.nthr_g.cpu().numpy().astype(np.int64)
+            * c.substep.flags["n_cores"])
+    kd_ops = np.zeros(n, bool)
+    se_ops = np.zeros(n, bool)
+    for g in range(c.G):
+        cur = int(ci_before[g, 0])
+        adv = int(ci_after[g, 2]) - int(ci_before[g, 2])
+        se_ops[np.arange(cur, cur + adv + 1) % n] = True
+        kd_ops[np.arange(cur - held[g], cur + adv + 1) % n] = True
+    return int(ops_len[kd_ops].sum()), int(se_ops.sum())
+
+
+def phase_timing(sc, art, sm_mhz):
     """Per-launch time of ``fused_steps`` at the main path's shapes (one
     cohort = 128 cells; K = 1024 steps), the plain version's time for the
     same K steps from the same state, and the kernel's bounds."""
     tr = art.trace_result.trace
     cohorts = rt.plan_grid(sc.sim_config(), tr, sc.latencies_sec(),
                            sc.thread_candidates, n_ops=sc.n_ops, device=DEV)
+    reps = 8
     rows = []
     for c in cohorts:
         tail = c.fused_tail()
         us = [c.uniforms(ck) for ck in range(4)]
         state0 = tuple(p.clone() for p in c.state)
-        state = sk.fused_steps(c.substep, state0, us[0], *tail)   # warm-up
-        holder = {"s": state, "i": 0}
+        warmed = sk.fused_steps(c.substep, state0, us[0], *tail)  # warm-up
+        holder = {"s": tuple(p.clone() for p in warmed), "i": 0}
 
         def launch():
             holder["i"] += 1
@@ -374,10 +445,24 @@ def phase_timing(sc, art):
                 c.substep, holder["s"], us[holder["i"] % 4], *tail,
                 inplace=True)
 
-        ms = cuda_ms(launch, 8)
+        ms = cuda_ms(launch, reps)
+        # the same launches again, untimed, for the table rows they read
+        holder = {"s": warmed, "i": 0}
+        kd_rows = se_rows = 0
+        for _ in range(reps):
+            before = holder["s"][1].cpu().numpy()
+            launch()
+            kd_n, se_n = gathered_rows(c, before,
+                                       holder["s"][1].cpu().numpy())
+            kd_rows += kd_n
+            se_rows += se_n
+        kd_rows, se_rows = kd_rows / reps, se_rows / reps
         K = us[0].shape[0]
+        # bytes one launch must move: state in and out, the uniform block,
+        # the per-cell vectors (L_mem f64, nthr i32, warm i32), and the
+        # table rows it gathers (two f64 a row), each counted once
         nbytes = (2 * state_bytes(c.state) + us[0].numel() * 8
-                  + (c.kd.numel() + c.se.numel()) * 8 + c.G * 16)
+                  + c.G * 16 + (kd_rows + se_rows) * 16)
         T = c.state[2].shape[1]
         P = c.state[5].shape[-1]
         # f64 operations of one step of one cell: two ops per ring slot and
@@ -388,11 +473,18 @@ def phase_timing(sc, art):
         rows.append({"T_max": c.T_max, "G": c.G, "K": K, "n_u": c.n_u,
                      "ms": ms, "us_per_step": ms * 1e3 / K,
                      "bound_bytes_ms": b_bytes, "bound_ops_ms": b_ops,
-                     "state_bytes": state_bytes(c.state)})
-    # plain version: the widest cohort, the same K steps from the init state
+                     "serial_chain_ms": K * CHAIN_CYCLES / (sm_mhz * 1e3),
+                     "state_bytes": state_bytes(c.state),
+                     "u_block_bytes": us[0].numel() * 8,
+                     "kd_rows_gathered": kd_rows, "se_rows_gathered": se_rows,
+                     "kd_rows_total": int(c.kd.shape[0]),
+                     "se_rows_total": int(c.se.shape[0])})
+    # plain version: the widest cohort, the same K steps from the init
+    # state, granting through the plain token clock (no CUDA kernel in it)
     c = cohorts[-1]
     u0 = c.uniforms(0)
-    sub = c.substep
+    sub = sk.make_substep(**c.substep.flags,
+                          token_clock=tc.token_clock_update_ref)
 
     def plain_k():
         s = c.state
@@ -404,9 +496,12 @@ def phase_timing(sc, art):
     before = tc.token_clock_update.launches
     s_plain = plain_k()                          # warm-up + comparison
     plain_ms = cuda_ms(plain_k, 1)
-    s_kern = sk.fused_steps(sub, c.state, u0, *c.fused_tail())
+    if tc.token_clock_update.launches != before:
+        fail("the plain version used for the comparison launched the "
+             "token-clock kernel")
+    s_kern = sk.fused_steps(c.substep, c.state, u0, *c.fused_tail())
     torch.cuda.synchronize()
-    ok, err, bad = selfcheck.states_agree(s_plain, s_kern, False)
+    ok, err, bad = cases.states_agree(s_plain, s_kern, False)
     if not ok:
         fail(f"fused_steps disagrees with the plain version at the main "
              f"path's shape after {u0.shape[0]} steps: plane {bad}, max "
@@ -414,11 +509,14 @@ def phase_timing(sc, art):
     steps_per_s = sum(r["G"] * r["K"] for r in rows) / sum(
         r["ms"] * 1e-3 for r in rows)
     emit("timing", fused_steps=rows, plain_ms_widest_cohort=plain_ms,
-         plain_token_clock_launches=tc.token_clock_update.launches - before,
          kernel_cell_steps_per_s=steps_per_s,
-         note="bytes and operations bounds are both microseconds; the "
-              "binding limit is the serial chain: K dependent steps per "
-              "cell, us_per_step each")
+         serial_chain_model=dict(CHAIN, cycles_per_step=CHAIN_CYCLES,
+                                 sm_clock_mhz=sm_mhz,
+                                 note="assumed latencies, not measured"),
+         note="the bytes and operations bounds are both about a "
+              "microsecond; the binding limit is neither but the serial "
+              "chain: K dependent steps per cell (serial_chain_ms is a "
+              "modelled floor of it, us_per_step what a step takes)")
     widest = rows[-1]
     return widest, plain_ms, err, (c.G, c.state[6].shape[1]
                                    if len(c.state) > 6 else 1)
@@ -427,7 +525,7 @@ def phase_timing(sc, art):
 def main():
     t_all = time.perf_counter()
     torch.cuda.set_device(0)
-    card = phase_card()
+    card, sm_mhz = phase_card()
     phase_build()
 
     sc_small = scenario(2, (8,), n_keys=2000, n_wl_ops=600)
@@ -440,20 +538,28 @@ def main():
                    "moved between adjacent bins, same row total")
 
     sc, art, launches = phase_main_path()
+    plain_launches = phase_plain_step_path(art)
     phase_agreement(sc, art)
-    widest, plain_ms, err_main, (G, S) = phase_timing(sc, art)
+    widest, plain_ms, err_main, (G, S) = phase_timing(sc, art, sm_mhz)
     tok = phase_token_clock(G, S)
-    tok["launches"] = launches["token_clock_update"]
+    tok["launches"] = plain_launches["token_clock_update"]
+    tok["path"] = "plain_step_path"
+    tok["launches_main_path"] = launches["token_clock_update"]
     fused = dict(
         name="sched_step.fused_steps", route="cuda",
         source="src/repro_torch/kernels/csrc/sched_step.cu",
         replaces="src/repro/kernels/sched_step.py:622",
-        launches=launches["fused_steps"],
+        launches=launches["fused_steps"], path="main_path",
         max_abs_err=max(err_fused, err_main), ms=widest["ms"],
         plain_ms=plain_ms,
         bound_ms=max(widest["bound_bytes_ms"], widest["bound_ops_ms"]),
         bound_by=("bytes" if widest["bound_bytes_ms"]
                   >= widest["bound_ops_ms"] else "operations"),
+        bound_bytes_ms=widest["bound_bytes_ms"],
+        bound_ops_ms=widest["bound_ops_ms"],
+        serial_chain_ms=widest["serial_chain_ms"],
+        binding="the serial chain (latency of K dependent steps), which "
+                "neither the bytes nor the operations bound describes",
         library_ms=None,
         shape={"G": widest["G"], "T": widest["T_max"], "K": widest["K"]},
         tolerance="bit-equal (histogram: adjacent-bin rule)")

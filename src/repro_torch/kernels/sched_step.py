@@ -166,7 +166,7 @@ def unpack_span(span):
 def make_substep(*, n_u, n_ssd, has_eps, has_rho, has_jitter, has_rio,
                  has_bio, has_bmem, has_lock, has_arr=False, has_lat=False,
                  has_deadline=False, has_degrade=False, eager_wmin=True,
-                 n_cores=1):
+                 n_cores=1, token_clock=token_clock_update):
     """Build the plain scheduler substep body, specialized on the static
     config.
 
@@ -192,6 +192,11 @@ def make_substep(*, n_u, n_ssd, has_eps, has_rho, has_jitter, has_rio,
     re-derivation; ``False`` branches on ``starved.any()``, which costs a
     host synchronisation per step on a CUDA tensor.  The values agree either
     way: a cell that did not starve re-derives identical keys.
+
+    ``token_clock`` is the multi-device grant (``n_ssd > 1``): by default
+    :func:`~repro_torch.kernels.token_clock.token_clock_update`, which
+    launches its CUDA kernel on CUDA tensors; a comparison that must stay
+    independent of both kernels passes ``token_clock_update_ref``.
     """
     has_io_clock = has_rio or has_bio
     multicore = n_cores > 1
@@ -385,9 +390,10 @@ def make_substep(*, n_u, n_ssd, has_eps, has_rho, has_jitter, has_rio,
         else:
             devmask = (iota((G, n_ssd), dev)
                        == (io_rr % n_ssd)[:, None]) & park[:, None]
-            # The standalone token-clock function: its CUDA kernel on CUDA
-            # tensors, its plain version on CPU tensors (bit-identical).
-            svc, tok2d, bw2d = token_clock_update(
+            # The standalone token-clock function: by default its CUDA
+            # kernel on CUDA tensors, its plain version on CPU tensors
+            # (bit-identical).
+            svc, tok2d, bw2d = token_clock(
                 now, devmask, io_tok, io_bw, inv_R, cost_bw_io)
             io_out = (tok2d, bw2d)
             io_rr = io_rr + park

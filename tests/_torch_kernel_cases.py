@@ -1,10 +1,12 @@
-"""Kernel-vs-plain self-check cases for the fused scheduler step.
+"""Kernel-vs-plain check cases for the port's fused scheduler step.
 
 One small grid per *flag set* (every static flag of
 :func:`~repro_torch.kernels.sched_step.make_substep` switched on in at least
 one set), a seeded init state, and a seeded ``(K, n_u, G)`` uniform block:
-the CPU tests step these cases in both packages, and ``chip_smoke.py`` runs
-the CUDA kernel and the plain version on them on the card.
+the CPU tests step these cases in both packages, and ``chip_smoke.py`` and
+``test_torch_cuda.py`` run the CUDA kernel and the plain version on them on
+the card.  The module imports the port only, so it loads on a machine
+without jax.
 
 The contract (:func:`states_agree`): every plane bit-equal; only the sojourn
 histogram is held to "equal, or unit mass moved between adjacent bins, same
@@ -15,8 +17,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.sim import replay_torch as rt
-from . import sched_step as sk
+from repro_torch.core.sim import replay_torch as rt
+from repro_torch.kernels import sched_step as sk
+from repro_torch.kernels.token_clock import token_clock_update_ref
 
 __all__ = ["FLAG_SETS", "make_case", "step_args", "states_agree",
            "hist_equal_or_adjacent", "run_plain", "run_fused"]
@@ -114,7 +117,10 @@ def step_args(case, device="cpu"):
 
 
 def run_plain(case, device="cpu", **substep_kw):
-    """Step the case with the plain PyTorch body, one step at a time."""
+    """Step the case with the plain PyTorch body, one step at a time.  Its
+    multi-device grant is the plain token clock on every device, so on the
+    card the result owes nothing to either CUDA kernel."""
+    substep_kw.setdefault("token_clock", token_clock_update_ref)
     state, u, (kd, se, arr, n_trace, L_mem_g, nthr_g, warm_g, n_ops,
                dyn) = step_args(case, device)
     sub = sk.make_substep(**case["static"], **substep_kw)

@@ -1,9 +1,8 @@
 """Suite-wide setup, applied in every worker before any test module is
 imported: alias ``jax.experimental.enable_x64`` where the installed jax only
-has ``jax.enable_x64`` (the reference's grid backend imports the former),
-register the ``requires_cuda`` marker, and make the property tests
-reproducible.  A machine without jax (the port's CUDA tests need none) skips
-the alias."""
+has ``jax.enable_x64`` (the reference's grid backend imports the former), and
+register the ``requires_cuda`` marker.  A machine without jax (the port's CUDA
+tests need none) skips the alias."""
 try:
     import jax
     import jax.experimental
@@ -12,21 +11,6 @@ except ImportError:
 
 if jax is not None and not hasattr(jax.experimental, "enable_x64"):
     jax.experimental.enable_x64 = jax.enable_x64
-
-# Hypothesis draws part of its examples from the literals of every project
-# module loaded in the process, and replays a failure saved under
-# ``.hypothesis/``; so what a property test tries would change with the set of
-# modules imported beside it and with earlier runs in the same directory.
-# Fix the examples per test and keep no example database: a run depends on
-# the tree alone.
-try:
-    from hypothesis import settings as _hypothesis_settings
-except ImportError:
-    pass
-else:
-    _hypothesis_settings.register_profile(
-        "reproducible", derandomize=True, database=None)
-    _hypothesis_settings.load_profile("reproducible")
 
 
 def pytest_configure(config):

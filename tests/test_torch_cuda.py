@@ -18,9 +18,10 @@ from repro_torch.core.engines import run_trace
 from repro_torch.core.experiment import Experiment, Scenario
 from repro_torch.core.sim import SimConfig
 from repro_torch.core.sim import replay_torch as rt
-from repro_torch.kernels import selfcheck
 from repro_torch.kernels import sched_step as sk
 from repro_torch.kernels import token_clock as tc
+
+import _torch_kernel_cases as cases
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -44,17 +45,17 @@ def small_trace():
     return run_trace(store, wl, warmup_frac=sc.warmup_frac).trace
 
 
-@pytest.mark.parametrize("name", sorted(selfcheck.FLAG_SETS))
+@pytest.mark.parametrize("name", sorted(cases.FLAG_SETS))
 def test_fused_kernel_matches_plain_version(cuda, small_trace, name):
     """Bit-equal planes (histogram: adjacent-bin rule) after 192 steps."""
-    case = selfcheck.make_case(small_trace, selfcheck.FLAG_SETS[name], 17,
-                               n_steps=192)
+    case = cases.make_case(small_trace, cases.FLAG_SETS[name], 17,
+                           n_steps=192)
     before = sk.fused_steps.launches
-    plain = selfcheck.run_plain(case, cuda)
-    fused = selfcheck.run_fused(case, cuda)
+    plain = cases.run_plain(case, cuda)
+    fused = cases.run_fused(case, cuda)
     torch.cuda.synchronize()
     assert sk.fused_steps.launches == before + 1
-    ok, err, bad = selfcheck.states_agree(plain, fused, case["has_lat"])
+    ok, err, bad = cases.states_agree(plain, fused, case["has_lat"])
     assert ok, f"{name}: plane {bad} differs (max abs err {err})"
 
 

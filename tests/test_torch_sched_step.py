@@ -26,9 +26,9 @@ from jax.experimental import enable_x64
 from repro.kernels import sched_step as ref_sk
 from repro_torch.core.sim import replay_torch as rt
 from repro_torch.kernels import sched_step as sk
-from repro_torch.kernels import selfcheck
-from repro_torch.kernels.selfcheck import FLAG_SETS, hist_equal_or_adjacent
 
+import _torch_kernel_cases as cases
+from _torch_kernel_cases import FLAG_SETS, hist_equal_or_adjacent
 from _torch_port_support import (
     ENGINES,
     US,
@@ -36,7 +36,6 @@ from _torch_port_support import (
     bits_equal,
     engine_trace,
 )
-
 
 
 def _run_both(case):
@@ -62,7 +61,7 @@ def _run_both(case):
         for k in range(us.shape[0]):
             s_r = sub_r(s_r, jnp.asarray(us[k]), *args_r)
             s_p = sub_p(s_p, t(us[k]), *args_p)
-            ok, err, bad = selfcheck.states_agree(
+            ok, err, bad = cases.states_agree(
                 tuple(np.asarray(p) for p in s_r), s_p, case["has_lat"])
             assert ok, f"step {k}: plane {bad} differs (max abs err {err})"
     return s_p
@@ -77,16 +76,16 @@ def hash_trace():
 def test_step_bit_equal_per_engine(engine):
     """Every engine's suboperation mix, default 2-SSD device flags."""
     trace = engine_trace(engine).trace
-    case = selfcheck.make_case(trace, FLAG_SETS["rio+bio-2ssd"],
-                               zlib.crc32(engine.encode()), n_steps=220)
+    case = cases.make_case(trace, FLAG_SETS["rio+bio-2ssd"],
+                           zlib.crc32(engine.encode()), n_steps=220)
     final = _run_both(case)
     assert int(final[1][:, 2].min()) > 0        # ops really completed
 
 
 @pytest.mark.parametrize("name", sorted(FLAG_SETS))
 def test_step_bit_equal_per_flag_set(hash_trace, name):
-    case = selfcheck.make_case(hash_trace, FLAG_SETS[name],
-                               zlib.crc32(name.encode()), n_steps=260)
+    case = cases.make_case(hash_trace, FLAG_SETS[name],
+                           zlib.crc32(name.encode()), n_steps=260)
     final = _run_both(case)
     assert int(final[1][:, 3].max()) > 0        # the measured window opened
     if case["has_lat"]:
@@ -98,10 +97,10 @@ def test_step_bit_equal_per_flag_set(hash_trace, name):
 def test_straight_line_idle_skip_equals_branching_form(hash_trace, name):
     """The default straight-line idle skip against the form that branches
     on ``starved.any()`` (the reference's ``lax.cond``): bit-equal."""
-    case = selfcheck.make_case(hash_trace, FLAG_SETS[name],
-                               zlib.crc32(name.encode()) + 1, n_steps=200)
-    ref = selfcheck.run_plain(case)
-    got = selfcheck.run_plain(case, eager_wmin=False)
+    case = cases.make_case(hash_trace, FLAG_SETS[name],
+                           zlib.crc32(name.encode()) + 1, n_steps=200)
+    ref = cases.run_plain(case)
+    got = cases.run_plain(case, eager_wmin=False)
     for a, b in zip(ref, got):
         assert bits_equal(a.numpy(), b.numpy())
 
@@ -109,12 +108,12 @@ def test_straight_line_idle_skip_equals_branching_form(hash_trace, name):
 def test_fused_steps_on_cpu_is_k_plain_steps(hash_trace):
     """On CPU tensors ``fused_steps`` is K applications of the plain body
     (and counts no kernel launch); blocks of K compose."""
-    case = selfcheck.make_case(hash_trace, FLAG_SETS["rio+bio-2ssd"], 5,
-                               n_steps=24)
+    case = cases.make_case(hash_trace, FLAG_SETS["rio+bio-2ssd"], 5,
+                           n_steps=24)
     before = sk.fused_steps.launches
-    whole = selfcheck.run_fused(case, "cpu")
-    blocks = selfcheck.run_fused(case, "cpu", block=8)
-    plain = selfcheck.run_plain(case)
+    whole = cases.run_fused(case, "cpu")
+    blocks = cases.run_fused(case, "cpu", block=8)
+    plain = cases.run_plain(case)
     assert sk.fused_steps.launches == before
     for a, b, c in zip(whole, blocks, plain):
         assert bits_equal(a.numpy(), b.numpy())
@@ -128,20 +127,20 @@ def test_states_agree_contract():
     h[0, 10] = 3
     planes = (np.ones((2, 6)), np.ones((2, 7), np.int32), h, np.zeros(2))
     same = tuple(p.copy() for p in planes)
-    assert selfcheck.states_agree(planes, same, True)[0]
+    assert cases.states_agree(planes, same, True)[0]
     moved = tuple(p.copy() for p in planes)
     moved[2][0, 10], moved[2][0, 11] = 2, 1
-    assert selfcheck.states_agree(planes, moved, True)[0]
-    assert not selfcheck.states_agree(planes, moved, False)[0]
+    assert cases.states_agree(planes, moved, True)[0]
+    assert not cases.states_agree(planes, moved, False)[0]
     far = tuple(p.copy() for p in planes)
     far[2][0, 10], far[2][0, 12] = 2, 1
-    assert not selfcheck.states_agree(planes, far, True)[0]
+    assert not cases.states_agree(planes, far, True)[0]
     lost = tuple(p.copy() for p in planes)
     lost[2][0, 10] = 2
-    assert not selfcheck.states_agree(planes, lost, True)[0]
+    assert not cases.states_agree(planes, lost, True)[0]
     bit = tuple(p.copy() for p in planes)
     bit[0][1, 2] = np.nextafter(1.0, 2.0)
-    ok, err, bad = selfcheck.states_agree(planes, bit, True)
+    ok, err, bad = cases.states_agree(planes, bit, True)
     assert not ok and bad == 0 and 0 < err < 1e-15
     assert hist_equal_or_adjacent(h, moved[2])
 
@@ -179,9 +178,9 @@ def test_tag_helpers_match_reference():
 def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(hash_trace):
     """Validation runs before any launch, so it is testable without a GPU:
     the wrapper raises on shapes / dtypes the kernel does not take."""
-    case = selfcheck.make_case(hash_trace, FLAG_SETS["plain"], 3, n_steps=4)
+    case = cases.make_case(hash_trace, FLAG_SETS["plain"], 3, n_steps=4)
     sub = sk.make_substep(**case["static"])
-    state, us, tail = selfcheck.step_args(case)
+    state, us, tail = cases.step_args(case)
     bad = list(state)
     bad[1] = bad[1].long()                      # ci must be int32
     with pytest.raises(ValueError, match="ci"):
