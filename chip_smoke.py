@@ -3,19 +3,27 @@
 
 Run from the repository root with no arguments::
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--seed N]
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc/`` with
 ``nvcc``, holds each kernel against its plain PyTorch version on the card,
-drives the port's main path -- one ``Scenario`` through ``Experiment.run``
-with every scalar-latency grid cell stepped by the fused CUDA kernel -- at
-real size, drives the plain-step path (which launches the standalone
-token-clock kernel) on one cohort of the same grid in a counted window of its
-own, checks the results against the host interpreter loop, times the kernels,
-and prints one JSON object per phase.  The last line is
+and drives the port's paths, each in a counted window of its own:
+
+  * the grid replay -- one ``Scenario`` through ``Experiment.run`` with every
+    scalar-latency grid cell stepped by the fused CUDA kernel -- at real
+    size, checked against the host interpreter loop;
+  * the plain-step path (which launches the standalone token-clock kernel)
+    on one cohort of the same grid;
+  * serving: ``ServeEngine`` with qwen2.5-3b at full width (weights drawn on
+    the card from ``--seed``) answering 8 requests, every decode step's
+    attention through the paged CUDA kernel, two of the requests checked
+    against the dense decode path teacher-forced on the served tokens.
+
+It times the kernels and prints one JSON object per phase.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failing phase exits non-zero; there
 is no CPU fallback: without a CUDA device the script fails.
 """
+import argparse
 import json
 import math
 import subprocess
@@ -35,13 +43,20 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device is available; this script runs the "
              "port on an NVIDIA GPU and has no CPU fallback")
 
+import torch.nn.functional as F
+
+from repro_torch.configs import ARCHS
 from repro_torch.core.engines import run_trace
 from repro_torch.core.experiment import Experiment, RunOptions, Scenario
 from repro_torch.core.sim import generate_arrivals, simulate_compiled
 from repro_torch.core.sim import replay_torch as rt
 from repro_torch.kernels import _build
+from repro_torch.kernels import paged_kv_gather as pk
 from repro_torch.kernels import sched_step as sk
 from repro_torch.kernels import token_clock as tc
+from repro_torch.kernels.ref import paged_decode_attention_ref
+from repro_torch.models import transformer as tf
+from repro_torch.serve.engine import Request, ServeEngine
 
 import _torch_kernel_cases as cases
 
@@ -57,6 +72,31 @@ CANDS = (8, 16, 32, 64)
 # float64 rate outside the tensor cores (half the 67 TFLOP/s float32 rate).
 HBM_BYTES_PER_S = 3.35e12
 F64_FLOP_PER_S = 33.5e12
+# ... and the dense rates for the paged kernel's input types: bfloat16 on
+# the tensor cores, float32 outside them.
+PEAK_FLOP_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+
+# Serving: qwen2.5-3b at full width (36 layers, d 2048, 16/2 heads of 128,
+# d_ff 11008, vocab 151 936, tied embeddings, bfloat16), nothing cut.
+SERVE_ARCH = "qwen2.5-3b"
+SERVE = dict(n_pages=1024, page_size=16, max_slots=8)
+N_REQUESTS = 8
+PROMPT_LEN = (100, 1000)         # drawn uniformly from the seed, inclusive
+N_NEW = 32
+# Paged vs dense decode, teacher-forced on the served tokens: max abs logit
+# difference per step, and the argmax rule (the two must agree wherever the
+# dense path's top-1 minus top-2 margin exceeds this).  The two paths run the
+# same bfloat16 model through different kernels: the paged attention kernel
+# against the plain float32 decode attention, and matrix products of batch
+# 8 against batch 1, which cuBLAS may sum in another order.  Each rounds its
+# bfloat16 results (8-bit significand) to a neighbouring value now and then,
+# and the differences travel through 36 layers.  Logits here are of order
+# 1-5, where a bfloat16 step is 0.0078-0.031; 0.25 is eight steps at the top
+# of that range.
+LOGIT_TOL = 0.25
+# Ring depths (n_buffers) the paged kernel is timed at; the engine, like the
+# reference, runs it at 2.
+DEPTHS = (2, 4, 8)
 
 # The serial chain of one scheduler step, as a model (assumed cycle counts,
 # not measured here): the least latency of the operations that the next
@@ -105,6 +145,13 @@ def cuda_ms(fn, reps):
 def reset_counts():
     sk.fused_steps.launches = 0
     tc.token_clock_update.launches = 0
+    pk.paged_decode_attention.launches = 0
+
+
+def counts():
+    return {"fused_steps": sk.fused_steps.launches,
+            "token_clock_update": tc.token_clock_update.launches,
+            "paged_decode_attention": pk.paged_decode_attention.launches}
 
 
 def state_bytes(state):
@@ -251,8 +298,7 @@ def phase_main_path():
     art = Experiment(sc).run()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = {"fused_steps": sk.fused_steps.launches,
-                "token_clock_update": tc.token_clock_update.launches}
+    launches = counts()
     peak = torch.cuda.max_memory_allocated()
     if launches["fused_steps"] <= 0:
         fail("kernel fused_steps was not launched on the main path")
@@ -311,8 +357,7 @@ def phase_plain_step_path(art):
     art_plain = Experiment(sc_plain, RunOptions(use_kernel=False)).run()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = {"fused_steps": sk.fused_steps.launches,
-                "token_clock_update": tc.token_clock_update.launches}
+    launches = counts()
     if launches["fused_steps"] != 0:
         fail("the plain-step path launched the fused kernel")
     if launches["token_clock_update"] <= 0:
@@ -522,7 +567,315 @@ def phase_timing(sc, art, sm_mhz):
                                    if len(c.state) > 6 else 1)
 
 
+# -- paged decode attention and the serving path -------------------------------
+
+
+def phase_paged_checks():
+    """The paged attention kernel against its plain version on the card:
+    the reference's five ``PAGED_CASES`` x n_buffers 2, 3, 4, the length-1 /
+    exactly-full edge case and the serving shape, each within the
+    reference's own tolerance (3e-2 bfloat16, 5e-5 float32)."""
+    checks, worst = [], {"bfloat16": 0.0, "float32": 0.0}
+    named = [(f"paged-{i}", c) for i, c in enumerate(cases.PAGED_CASES)]
+    named += [("edge-len1-full", cases.PAGED_EDGE),
+              ("serve-shape", cases.PAGED_SERVE)]
+    for name, case in named:
+        c = cases.make_paged_case(case, seed=1)
+        args = cases.paged_tensors(c, DEV)
+        want = paged_decode_attention_ref(*args)
+        for nb in (2, 3, 4):
+            got = pk.paged_decode_attention(*args, n_buffers=nb)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            tol = cases.PAGED_TOL[c["dtype"]]
+            checks.append({"case": name, "n_buffers": nb,
+                           "dtype": c["dtype"], "max_abs_err": err,
+                           "tol": tol})
+            worst[c["dtype"]] = max(worst[c["dtype"]], err)
+            if not err <= tol:
+                fail(f"paged_decode_attention disagrees with its plain "
+                     f"version on {name}, n_buffers {nb}: max abs err {err} "
+                     f"> {tol}")
+    emit("paged_checks", n_checks=len(checks), max_abs_err_by_dtype=worst,
+         checks=checks)
+    return worst
+
+
+def phase_serve_path(seed):
+    """The port's serving path at full width: qwen2.5-3b through
+    ``ServeEngine`` on the card, 8 requests of 100-1000 prompt tokens, 32
+    new tokens each.  A one-request warm-up first; then the counts are set
+    to 0, the requests are served, and the counts are read."""
+    cfg = ARCHS[SERVE_ARCH]
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, seed=seed, device=DEV, **SERVE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(eng.params))
+    rng = np.random.default_rng(seed)
+    eng.submit(Request(rid=-1, prompt=rng.integers(1, cfg.vocab, 64)
+                       .astype(np.int32), max_new_tokens=3))
+    eng.run()                                          # warm-up
+    lens = rng.integers(PROMPT_LEN[0], PROMPT_LEN[1] + 1, N_REQUESTS)
+    reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab, int(n))
+                    .astype(np.int32), max_new_tokens=N_NEW)
+            for i, n in enumerate(lens)]
+    picks = (int(np.argmin(lens)), int(np.argmax(lens)))
+    logs = {rid: [] for rid in picks}
+    before = dict(eng.stats)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    finished = []
+    while (eng.waiting or eng.active) and eng.steps < 10 * N_NEW:
+        finished.extend(eng.step())
+        seq_ids, logits = eng.last_decode
+        for rid in picks:
+            if rid in seq_ids:
+                logs[rid].append(logits[seq_ids.index(rid)].float().clone())
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    st = {k: eng.stats[k] - before[k] for k in eng.stats}
+
+    if len(finished) != N_REQUESTS or any(
+            len(r.out_tokens) != N_NEW for r in reqs):
+        fail(f"serving returned {len(finished)} requests with "
+             f"{[len(r.out_tokens) for r in reqs]} tokens; expected "
+             f"{N_REQUESTS} x {N_NEW}")
+    if any(not 0 <= t < cfg.vocab for r in reqs for t in r.out_tokens):
+        fail("serving produced a token id outside the vocabulary")
+    if len(eng.cache.free) != SERVE["n_pages"] or eng.cache.tables:
+        fail(f"pages not released: {len(eng.cache.free)} of "
+             f"{SERVE['n_pages']} free")
+    if launches["paged_decode_attention"] != cfg.n_layers * st["decode_steps"]:
+        fail(f"paged_decode_attention launched "
+             f"{launches['paged_decode_attention']} times for "
+             f"{st['decode_steps']} decode steps of {cfg.n_layers} layers")
+    if launches["fused_steps"] or launches["token_clock_update"]:
+        fail(f"the serving path launched a scheduler kernel: {launches}")
+    prof = profile_decode(eng, rng)
+    emit("serve_path", arch=cfg.name, n_layers=cfg.n_layers,
+         d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
+         head_dim=cfg.head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab,
+         params=n_params, param_bytes=2 * n_params, cut="none",
+         weights=f"random, drawn on the card from seed {seed}",
+         init_s=init_s, **SERVE, requests=len(finished),
+         prompt_lens=[int(n) for n in lens],
+         prompt_tokens=st["prefill_tokens"],
+         generated_tokens=sum(len(r.out_tokens) for r in reqs),
+         prefill_s=st["prefill_s"],
+         prefill_tokens_per_s=st["prefill_tokens"] / st["prefill_s"],
+         decode_s=st["decode_s"], decode_steps=st["decode_steps"],
+         decode_tokens=st["decode_tokens"],
+         decode_tokens_per_s=st["decode_tokens"] / st["decode_s"],
+         decode_ms_per_step=1e3 * st["decode_s"] / st["decode_steps"],
+         wall_s=wall_s, launches=launches,
+         launches_per_decode_step=(launches["paged_decode_attention"]
+                                   / st["decode_steps"]),
+         peak_device_bytes=int(peak), pages_released=True,
+         decode_profile=prof)
+    return eng, reqs, logs, picks, launches
+
+
+def profile_decode(eng, rng, steps=3):
+    """Where a decode step's time goes: ``torch.profiler`` over ``steps``
+    decode-only steps of a fresh batch of 8 requests (after the counted
+    window).  Device busy time is the sum of the kernels' own device time;
+    the rest of the host wall is the device waiting for the host."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cfg = eng.cfg
+    for i in range(N_REQUESTS):
+        n = int(rng.integers(PROMPT_LEN[0], PROMPT_LEN[1] + 1))
+        eng.submit(Request(rid=1000 + i, prompt=rng.integers(
+            1, cfg.vocab, n).astype(np.int32), max_new_tokens=steps + 2))
+    eng.step()                          # admission (prefill) + first decode
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    eng.run()
+    per_kernel = {}
+    for ev in prof.key_averages():
+        # device-side events only (kernels, copies): an operator's own
+        # device time repeats that of the kernels it launched
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", 0.0)
+        if dev_us > 0:
+            per_kernel[ev.key] = per_kernel.get(ev.key, 0.0) + dev_us / 1e3
+    busy_ms = sum(per_kernel.values())
+    paged_ms = sum(v for k, v in per_kernel.items() if "paged_decode" in k)
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
+            "device_busy_ms_per_step": busy_ms / steps,
+            "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
+            "paged_kernel_ms_per_step": paged_ms / steps,
+            "top_device_ms_per_step": {k[:80]: v / steps for k, v in top},
+            "note": None if busy_ms else "the profiler saw no device time"}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase_serve_dense_check(eng, reqs, logs, picks):
+    """Two served requests (the shortest and the longest prompt) through the
+    port's dense path -- ``prefill`` + ``decode_step`` -- teacher-forced on
+    the tokens the paged path produced.  Per decode step: max abs logit
+    difference against the paged path's logits (<= ``LOGIT_TOL``), and the
+    argmax rule.  The counts are not reset: nothing here launches the paged
+    kernel."""
+    cfg = eng.cfg
+    before = pk.paged_decode_attention.launches
+    out = []
+    for rid in picks:
+        req = reqs[rid]
+        S = len(req.prompt)
+        prompt = torch.as_tensor(req.prompt, device=DEV)[None]
+        logits, cache = tf.prefill(eng.params, prompt, cfg,
+                                   max_len=S + N_NEW)
+        first_same = int(torch.argmax(logits[0, -1])) == req.out_tokens[0]
+        diffs, margins, agree = [], [], []
+        for t, paged in enumerate(logs[rid]):
+            tok = torch.tensor([[req.out_tokens[t]]], device=DEV)
+            dense, cache = tf.decode_step(eng.params, cache, tok, cfg)
+            d = dense[0, 0].float()
+            top2 = torch.topk(d, 2).values
+            margin = float(top2[0] - top2[1])
+            same = int(torch.argmax(d)) == int(torch.argmax(paged))
+            diffs.append(float((d - paged).abs().max()))
+            margins.append(margin)
+            agree.append(same)
+            if not same and margin > LOGIT_TOL:
+                fail(f"request {rid}, decode step {t}: paged and dense argmax "
+                     f"differ with a dense top-2 margin of {margin} > "
+                     f"{LOGIT_TOL}")
+        if max(diffs) > LOGIT_TOL:
+            fail(f"request {rid}: paged vs dense logits differ by "
+                 f"{max(diffs)} > {LOGIT_TOL}")
+        if not first_same:
+            fail(f"request {rid}: the dense prefill's first token differs")
+        out.append({"rid": rid, "prompt_len": S, "steps": len(diffs),
+                    "max_abs_logit_diff_per_step": diffs,
+                    "argmax_agree_per_step": agree,
+                    "argmax_agreement": sum(agree) / len(agree),
+                    "dense_top2_margin_per_step": margins,
+                    "first_token_same": first_same})
+    if pk.paged_decode_attention.launches != before:
+        fail("the dense path launched the paged kernel")
+    emit("serve_dense_check", tolerance=LOGIT_TOL,
+         argmax_rule="argmax must agree where the dense top-1 minus top-2 "
+                     "margin exceeds the tolerance",
+         requests=out,
+         max_abs_logit_diff=max(max(r["max_abs_logit_diff_per_step"])
+                                for r in out))
+
+
+def paged_bound(c):
+    """(bound_ms, bound_by, bytes, flops): the least time the card could
+    take for this call.  Bytes: the valid K/V rows of every (sequence, KV
+    head) once, q in, the output out, the block-table entries used and the
+    lengths.  Operations: q.k and p.v, 2 x 2 x D per (query head, position),
+    at the peak rate of the inputs' type."""
+    B, Hq, D = c["q"].shape
+    page, Hkv = c["k_pages"].shape[1], c["k_pages"].shape[2]
+    elem = 2 if c["dtype"] == "bfloat16" else 4
+    L = c["lengths"].astype(np.int64)
+    n_pages = -(-L // page)
+    nbytes = (2 * int(L.sum()) * Hkv * D * elem + 2 * B * Hq * D * elem
+              + 4 * int(n_pages.sum()) + 4 * B)
+    flops = 4 * Hq * D * int(L.sum())
+    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ops = flops / PEAK_FLOP_PER_S[c["dtype"]] * 1e3
+    return (max(b_bytes, b_ops), "bytes" if b_bytes >= b_ops
+            else "operations", nbytes, flops)
+
+
+def paged_composition(q, k_pages, v_pages, bt, lengths):
+    """A two-call PyTorch composition of the same function (gather the
+    pages, then ``scaled_dot_product_attention`` with grouped heads and a
+    length mask): the yardstick beside the kernel, used nowhere in the
+    port.  No single PyTorch call computes a paged attention."""
+    B, Hq, D = q.shape
+    page, Hkv = k_pages.shape[1], k_pages.shape[2]
+    S = bt.shape[1] * page
+    k = k_pages[bt.long()].reshape(B, S, Hkv, D).transpose(1, 2)
+    v = v_pages[bt.long()].reshape(B, S, Hkv, D).transpose(1, 2)
+    mask = (torch.arange(S, device=q.device)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    return F.scaled_dot_product_attention(
+        q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)[:, :, 0]
+
+
+def phase_paged_timing():
+    """The kernel, its plain version and the two-call composition by CUDA
+    events after a warm-up, at the serving shape and at a 32k context; the
+    kernel also at ring depths ``DEPTHS``."""
+    rows = []
+    for name, case, reps in (("serve", cases.PAGED_SERVE, 50),
+                             ("long-32k", cases.PAGED_LONG, 10)):
+        c = cases.make_paged_case(case, seed=5)
+        args = cases.paged_tensors(c, DEV)
+        want = paged_decode_attention_ref(*args)
+        got = pk.paged_decode_attention(*args)
+        comp = paged_composition(*args)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        comp_err = float((comp.float() - want.float()).abs().max())
+        tol = cases.PAGED_TOL[c["dtype"]]
+        if not err <= tol:
+            fail(f"paged_decode_attention at the {name} shape: max abs err "
+                 f"{err} > {tol}")
+        ms = cuda_ms(lambda: pk.paged_decode_attention(*args), reps)
+        # the prefetch depth P of the paper's model: the ring's slots
+        ms_by_depth = {nb: cuda_ms(lambda nb=nb: pk.paged_decode_attention(
+            *args, n_buffers=nb), reps) for nb in DEPTHS}
+        plain_ms = cuda_ms(lambda: paged_decode_attention_ref(*args),
+                           max(2, reps // 5))
+        comp_ms = cuda_ms(lambda: paged_composition(*args), reps)
+        bound_ms, bound_by, nbytes, flops = paged_bound(c)
+        B, Hq, D = c["q"].shape
+        rows.append({"shape": name, "B": B, "Hq": Hq,
+                     "Hkv": c["k_pages"].shape[2], "D": D,
+                     "page": c["k_pages"].shape[1],
+                     "ppseq": c["block_tables"].shape[1],
+                     "dtype": c["dtype"], "tokens": int(c["lengths"].sum()),
+                     "max_len": int(c["lengths"].max()), "ms": ms,
+                     "ms_by_n_buffers": ms_by_depth,
+                     "plain_ms": plain_ms, "composition_ms": comp_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "bytes": nbytes, "flops": flops,
+                     "roofline_share": bound_ms / ms,
+                     "achieved_bytes_per_s": nbytes / (ms * 1e-3),
+                     "max_abs_err": err, "composition_max_abs_err": comp_err})
+        del args, want, got, comp
+        torch.cuda.empty_cache()
+    emit("paged_timing", rows=rows,
+         composition="k_pages[block_tables] gather + "
+                     "F.scaled_dot_product_attention(enable_gqa=True, "
+                     "attn_mask=length mask): two calls, timed together")
+    return rows
+
+
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the served model's weights and prompts")
+    args = ap.parse_args()
     t_all = time.perf_counter()
     torch.cuda.set_device(0)
     card, sm_mhz = phase_card()
@@ -536,6 +889,7 @@ def main():
          fused_steps_max_abs_err=err_fused,
          tolerance="every plane bit-equal; histogram: equal, or unit mass "
                    "moved between adjacent bins, same row total")
+    paged_err = phase_paged_checks()
 
     sc, art, launches = phase_main_path()
     plain_launches = phase_plain_step_path(art)
@@ -563,13 +917,39 @@ def main():
         library_ms=None,
         shape={"G": widest["G"], "T": widest["T_max"], "K": widest["K"]},
         tolerance="bit-equal (histogram: adjacent-bin rule)")
-    print(json.dumps({"kernels": [fused, tok]}), flush=True)
+
+    eng, reqs, logs, picks, serve_launches = phase_serve_path(args.seed)
+    phase_serve_dense_check(eng, reqs, logs, picks)
+    del eng, logs
+    torch.cuda.empty_cache()
+    serve_row, long_row = phase_paged_timing()
+    paged = dict(
+        name="paged_kv_gather.paged_decode_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/paged_kv_gather.cu",
+        replaces="src/repro/kernels/paged_kv_gather.py:124",
+        launches=serve_launches["paged_decode_attention"], path="serve_path",
+        max_abs_err=max(paged_err.values()),
+        max_abs_err_by_dtype=paged_err, ms=serve_row["ms"],
+        plain_ms=serve_row["plain_ms"], bound_ms=serve_row["bound_ms"],
+        bound_by=serve_row["bound_by"], library_ms=None,
+        composition_ms=serve_row["composition_ms"],
+        composition="two calls, no single PyTorch call computes it: "
+                    "k_pages[block_tables] + scaled_dot_product_attention",
+        shape={k: serve_row[k] for k in ("B", "Hq", "Hkv", "D", "page",
+                                         "ppseq", "dtype", "tokens")},
+        long_context={k: long_row[k] for k in (
+            "B", "ppseq", "tokens", "ms", "plain_ms", "composition_ms",
+            "bound_ms", "bound_by")},
+        tolerance="3e-2 bfloat16, 5e-5 float32 (absolute)")
+    kernels = [fused, tok, paged]
+    total_s = time.perf_counter() - t_all
+    emit("total", seconds=total_s)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_phases.json").write_text(
-        json.dumps({"card": card, "phases": PHASES,
-                    "kernels": [fused, tok],
-                    "total_s": time.perf_counter() - t_all}, indent=1))
+        json.dumps({"card": card, "phases": PHASES, "kernels": kernels,
+                    "total_s": total_s}, indent=1))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

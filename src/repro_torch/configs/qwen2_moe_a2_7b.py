@@ -1,0 +1,20 @@
+"""qwen2-moe-a2.7b [moe] -- 4 shared + 60 routed top-4.
+[hf:Qwen/Qwen1.5-MoE-A2.7B; hf]"""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2-moe-a2.7b",
+    family="moe",
+    n_layers=24,
+    d_model=2048,
+    n_heads=16,
+    n_kv_heads=16,
+    d_ff=1408,
+    vocab=151936,
+    qkv_bias=True,
+    n_experts=60,
+    n_shared=4,
+    top_k=4,
+    d_expert=1408,
+    citation="hf:Qwen/Qwen1.5-MoE-A2.7B",
+).resolve()

@@ -8,20 +8,26 @@
   * :mod:`repro_torch.core.sim`      -- the discrete-event simulator, plus
     the batched latency-sweep pipeline (``backend="torch"`` replays the
     whole grid on the device, ``backend="loop"`` on the host interpreter)
-  * :mod:`repro_torch.core.latency_model` -- the paper's closed-form models
+  * :mod:`repro_torch.core.latency_model` -- the paper's closed-form models,
+    reused by the planner and the serving engine
+  * :mod:`repro_torch.core.planner`, :mod:`repro_torch.core.tiering` --
+    model-driven sizing of threads / prefetch depth, and the memory-tier
+    descriptors (verbatim copies of the reference's modules)
   * :mod:`repro_torch.core.experiment`   -- the public entry point:
     declarative :class:`~repro_torch.core.experiment.Scenario` specs
     executed by :class:`~repro_torch.core.experiment.Experiment` into
     serializable :class:`~repro_torch.core.experiment.RunArtifact` tables
 
-Cluster sweeps, the conformance fuzzer, the planner, tiering and the legacy
-shims of the reference are not part of the port yet (``ROADMAP.md``).
+Cluster sweeps, the conformance fuzzer and the legacy shims of the
+reference are not part of the port yet (``ROADMAP.md``).
 """
 from . import (  # noqa: F401
     engines,
     experiment,
     latency_model,
+    planner,
     sim,
+    tiering,
     trace_ir,
     workloads,
 )

@@ -7,9 +7,10 @@ first use into ``build/repro_torch_kernels/`` (override the directory with
 ``REPRO_TORCH_BUILD_DIR``), keyed by a hash of every file under ``csrc/`` and
 of the compiler flags, so an edited source never runs a stale binary.
 
-``-fmad=false`` is part of the contract, not a tuning choice: the kernels
-are held bit for bit against their plain PyTorch versions, and eager PyTorch
-never contracts ``a * b + c`` into a fused multiply-add.
+``-fmad=false`` is part of the contract, not a tuning choice: the scheduler
+kernels are held bit for bit against their plain PyTorch versions, and eager
+PyTorch never contracts ``a * b + c`` into a fused multiply-add.  (The paged
+attention kernel is held to a tolerance and would not need the flag.)
 """
 from __future__ import annotations
 
@@ -31,7 +32,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 
 #: library name -> translation unit under ``csrc/``
 KERNEL_SOURCES = {"sched_step": "sched_step.cu",
-                  "token_clock": "token_clock.cu"}
+                  "token_clock": "token_clock.cu",
+                  "paged_kv_gather": "paged_kv_gather.cu"}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -1,5 +1,6 @@
-"""Kernel-vs-plain check cases for the port's fused scheduler step.
+"""Kernel-vs-plain check cases for the port's CUDA kernels.
 
+The fused scheduler step:
 One small grid per *flag set* (every static flag of
 :func:`~repro_torch.kernels.sched_step.make_substep` switched on in at least
 one set), a seeded init state, and a seeded ``(K, n_u, G)`` uniform block:
@@ -11,6 +12,12 @@ without jax.
 The contract (:func:`states_agree`): every plane bit-equal; only the sojourn
 histogram is held to "equal, or unit mass moved between adjacent bins, same
 row total", because its bin index goes through ``log``.
+
+Paged decode attention: the reference's ``PAGED_CASES`` and its length-1 /
+exactly-full edge case (``tests/test_kernels.py``), the serving shape of
+qwen2.5-3b and one long-context shape, with inputs drawn by numpy from a seed
+(:func:`make_paged_case`).  Contract: within ``PAGED_TOL`` of the plain
+version (the reference's own ``_tol``), absolute, per dtype.
 """
 from __future__ import annotations
 
@@ -22,7 +29,9 @@ from repro_torch.kernels import sched_step as sk
 from repro_torch.kernels.token_clock import token_clock_update_ref
 
 __all__ = ["FLAG_SETS", "make_case", "step_args", "states_agree",
-           "hist_equal_or_adjacent", "run_plain", "run_fused"]
+           "hist_equal_or_adjacent", "run_plain", "run_fused",
+           "PAGED_CASES", "PAGED_EDGE", "PAGED_SERVE", "PAGED_LONG",
+           "PAGED_TOL", "MODEL_TOL", "make_paged_case", "paged_tensors"]
 
 US = 1e-6
 
@@ -190,3 +199,91 @@ def states_agree(a, b, has_lat: bool):
             ok = False
             bad = j if bad is None else bad
     return ok, err, bad
+
+
+# -- paged decode attention ---------------------------------------------------
+
+#: (B, Hq, Hkv, D, page, ppseq, n_buffers, dtype): tests/test_kernels.py:50-57
+PAGED_CASES = [
+    (2, 4, 2, 64, 16, 8, 2, "float32"),
+    (3, 8, 2, 128, 32, 4, 3, "bfloat16"),
+    (1, 2, 1, 64, 8, 16, 4, "float32"),
+    (4, 8, 8, 64, 16, 6, 2, "bfloat16"),
+    (2, 16, 2, 128, 64, 3, 2, "float32"),
+]
+
+#: a length-1 sequence and an exactly full page table (tests/test_kernels.py:80)
+PAGED_EDGE = dict(B=2, Hq=4, Hkv=2, D=64, page=8, ppseq=4, n_pages=16,
+                  dtype="float32", lengths=(1, 32), tables="arange")
+
+#: qwen2.5-3b's decode attention in ServeEngine: 8 slots, 16/2 heads,
+#: head_dim 128, 16-token pages out of 1024, ragged lengths up to ~1000
+PAGED_SERVE = dict(B=8, Hq=16, Hkv=2, D=128, page=16, ppseq=63,
+                   n_pages=1024, dtype="bfloat16", max_len=1000)
+
+#: the same heads at a 32k context (the repo's decode_32k sequence length)
+PAGED_LONG = dict(B=8, Hq=16, Hkv=2, D=128, page=16, ppseq=2048,
+                  n_pages=8 * 2048, dtype="bfloat16", max_len=32768)
+
+PAGED_TOL = {"bfloat16": 3e-2, "float32": 5e-5}
+
+#: bfloat16 model outputs (logits, K/V) of the port against another run of
+#: the same computation (the reference, or the dense path): every layer
+#: rounds q/k/v, the attention output, the residual stream and the MLP to
+#: bfloat16 (8-bit significand), and two implementations round their sums in
+#: different orders, so last-place differences arise and propagate.  Logits
+#: and K/V of the smoke models are of order 1-4, where a bfloat16 step is
+#: 0.0078-0.031; the worst difference seen on the CPU against the reference
+#: is 0.055, and 0.125 is four steps at the top of that range.
+MODEL_TOL = 0.125
+
+
+def make_paged_case(case, seed: int = 1) -> dict:
+    """Numpy inputs of one paged-attention check (float32 arrays; the
+    caller casts to ``dtype``).  ``case`` is a ``PAGED_CASES`` row or one of
+    the dicts above."""
+    rng = np.random.default_rng(seed)
+    if isinstance(case, tuple):
+        B, Hq, Hkv, D, page, ppseq, n_buf, dtype = case
+        P = 2 * B * ppseq
+        bt = rng.permutation(P)[: B * ppseq].reshape(B, ppseq)
+        lengths = [(i * 53 + 17) % (page * ppseq) + 1 for i in range(B)]
+    else:
+        B, Hq, Hkv, D, page, ppseq = (case[k] for k in
+                                      ("B", "Hq", "Hkv", "D", "page", "ppseq"))
+        P, dtype, n_buf = case["n_pages"], case["dtype"], 2
+        if case.get("tables") == "arange":
+            bt = np.arange(B * ppseq).reshape(B, ppseq)
+            lengths = list(case["lengths"])
+        else:
+            # ragged lengths, each sequence's pages drawn without repeats;
+            # table entries past a sequence's pages are 0, as batch_views
+            # pads them
+            top = case["max_len"]
+            lengths = rng.integers(max(1, top // 10), top + 1, B)
+            lengths[0], lengths[-1] = top, max(1, top // 10) + 1
+            bt = np.zeros((B, ppseq), np.int64)
+            perm = rng.permutation(P)
+            used = 0
+            for i, n in enumerate(lengths):
+                k = -(-int(n) // page)
+                bt[i, :k] = perm[used:used + k]
+                used += k
+    return dict(
+        dtype=dtype, n_buffers=n_buf,
+        q=rng.standard_normal((B, Hq, D)).astype(np.float32),
+        k_pages=rng.standard_normal((P, page, Hkv, D)).astype(np.float32),
+        v_pages=rng.standard_normal((P, page, Hkv, D)).astype(np.float32),
+        block_tables=np.asarray(bt, np.int32),
+        lengths=np.asarray(lengths, np.int32))
+
+
+def paged_tensors(c: dict, device="cpu"):
+    """``(q, k_pages, v_pages, block_tables, lengths)`` of a case as tensors
+    on ``device``, the float arrays cast to the case's dtype."""
+    dt = getattr(torch, c["dtype"])
+    f = [torch.from_numpy(c[n]).to(device=device, dtype=dt)
+         for n in ("q", "k_pages", "v_pages")]
+    i = [torch.from_numpy(c[n]).to(device) for n in ("block_tables",
+                                                       "lengths")]
+    return (*f, *i)

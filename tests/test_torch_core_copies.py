@@ -1,8 +1,12 @@
 """The port's copies of the reference's framework-free modules (engines,
 trace IR, workloads, the interpreter loops, arrival processes, the analytical
-model) give the same results as the originals.  Contract: bit-exact -- they
-are the same seeded pure-Python / numpy code."""
+model, the model configs, the planner and the memory tiers) give the same
+results as the originals.  Contract: bit-exact -- they are the same seeded
+pure-Python / numpy code; the configs, ``tiering.py`` and ``planner.py`` are
+also held byte for byte against their originals, import lines aside."""
+import ast
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -134,3 +138,69 @@ def test_latency_model_identical(traces):
     for name in ("theta_prob_inv", "theta_mask_inv", "theta_best_inv"):
         a, b = getattr(lm, name)(L, p), getattr(ref_lm, name)(L, r)
         assert np.asarray(a).tobytes() == np.asarray(b).tobytes(), name
+
+
+# -- verbatim copies of source files -------------------------------------------
+
+_SRC = Path(__file__).resolve().parents[1] / "src"
+VERBATIM = sorted(f"configs/{p.name}"
+                  for p in (_SRC / "repro" / "configs").glob("*.py")) \
+    + ["core/tiering.py", "core/planner.py"]
+
+
+def _without_imports(path: Path) -> list[str]:
+    """The file's lines with every import statement (all its lines) blanked."""
+    text = path.read_text()
+    lines = text.splitlines()
+    for node in ast.walk(ast.parse(text)):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            for i in range(node.lineno - 1, node.end_lineno):
+                lines[i] = ""
+    return lines
+
+
+@pytest.mark.parametrize("rel", VERBATIM)
+def test_verbatim_copy_byte_exact(rel):
+    """The port's copy equals the reference's file, import lines aside."""
+    port_file = _SRC / "repro_torch" / rel
+    assert port_file.exists(), rel
+    assert _without_imports(port_file) == \
+        _without_imports(_SRC / "repro" / rel)
+
+
+def test_configs_identical():
+    from repro import configs as ref_configs
+    from repro_torch import configs
+    assert list(configs.ARCHS) == list(ref_configs.ARCHS)
+    for name, cfg in configs.ARCHS.items():
+        ref_cfg = ref_configs.ARCHS[name]
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(ref_cfg)
+        assert dataclasses.asdict(configs.smoke_config(cfg)) == \
+            dataclasses.asdict(ref_configs.smoke_config(ref_cfg))
+        for sname, shape in configs.SHAPES.items():
+            ref_shape = ref_configs.SHAPES[sname]
+            assert configs.shape_applicable(cfg, shape) == \
+                ref_configs.shape_applicable(ref_cfg, ref_shape)
+            assert dataclasses.asdict(configs.shape_config(cfg, shape)) == \
+                dataclasses.asdict(ref_configs.shape_config(ref_cfg,
+                                                            ref_shape))
+
+
+def test_planner_identical():
+    from repro.core import planner as ref_planner
+    from repro.core import tiering as ref_tiering
+    from repro_torch.core import planner, tiering
+    for name in tiering.__all__:
+        a, b = getattr(tiering, name), getattr(ref_tiering, name)
+        if dataclasses.is_dataclass(a) and not isinstance(a, type):
+            assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    p = lm.OpParams(M=4.0, T_mem=2 * US, T_io_pre=5 * US, T_io_post=5 * US,
+                    T_sw=0.05 * US, P=2, S=1.0)
+    rp = ref_lm.OpParams(**dataclasses.asdict(p))
+    for tier in ("DRAM", "CXL_MICROSECOND", "TPU_HOST", "SSD"):
+        a = planner.plan_for_tier(p, getattr(tiering, tier))
+        b = ref_planner.plan_for_tier(rp, getattr(ref_tiering, tier))
+        assert dataclasses.asdict(a) == dataclasses.asdict(b)
+        assert planner.plan_concurrency(p, getattr(tiering, tier).latency) \
+            == ref_planner.plan_concurrency(rp,
+                                            getattr(ref_tiering, tier).latency)

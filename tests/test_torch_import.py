@@ -1,5 +1,6 @@
-"""The port stands alone: it imports ``torch`` and numpy, never ``jax`` and
-never anything of the reference package ``repro``."""
+"""The port stands alone: it imports ``torch`` and numpy, never ``jax``,
+``jaxlib``, ``ml_dtypes`` or anything of the reference package ``repro`` --
+not on import, not after a grid run, not after serving a request."""
 import re
 import subprocess
 import sys
@@ -12,18 +13,32 @@ PORT = ROOT / "src" / "repro_torch"
 
 _CHILD = r"""
 import json, sys
+import numpy as np
+FOREIGN = ("jax", "jaxlib", "ml_dtypes", "repro")
+def foreign():
+    return sorted(m for m in sys.modules if m.split(".")[0] in FOREIGN)
 import repro_torch
 import repro_torch.core
-after_import = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+import repro_torch.serve.engine
+after_import = foreign()
 from repro_torch.core.experiment import Experiment, RunOptions, Scenario
 doc = json.load(open(sys.argv[1]))
 doc.update(n_keys=1500, n_wl_ops=400, n_ops=100, latencies_us=[1, 5],
            thread_candidates=[4])
 art = Experiment(Scenario.from_dict(doc), RunOptions(device="cpu")).run()
-after_run = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+after_run = foreign()
+from repro_torch.configs import ARCHS, smoke_config
+from repro_torch.serve.engine import Request, ServeEngine
+eng = ServeEngine(smoke_config(ARCHS["qwen2.5-3b"]), n_pages=16, page_size=8,
+                  max_slots=2, device="cpu")
+eng.submit(Request(rid=0, prompt=np.arange(1, 10, dtype=np.int32),
+                   max_new_tokens=3))
+served = eng.run()
 print(json.dumps({"after_import": after_import, "after_run": after_run,
+                  "after_serve": foreign(),
                   "rows": len(art.rows),
-                  "thr": [r.throughput for r in art.rows]}))
+                  "thr": [r.throughput for r in art.rows],
+                  "served": [len(r.out_tokens) for r in served]}))
 """
 
 
@@ -38,7 +53,9 @@ def test_import_and_run_leave_jax_and_reference_out_of_sys_modules():
     assert out.returncode == 0, out.stderr[-2000:]
     doc = json.loads(out.stdout.strip().splitlines()[-1])
     assert doc["after_import"] == [] and doc["after_run"] == []
+    assert doc["after_serve"] == []
     assert doc["rows"] == 2 and all(t > 0 for t in doc["thr"])
+    assert doc["served"] == [3]
 
 
 def _sources():
@@ -89,6 +106,10 @@ def test_default_device_is_cuda_and_raises_without_one():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         rt.sweep_grid(SimConfig(), trace, [1e-6], [4], n_ops=50)
     assert rt.resolve_device("cpu").type == "cpu"
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.serve.engine import ServeEngine
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeEngine(smoke_config(ARCHS["qwen2.5-3b"]), n_pages=8)
 
 
 def test_cluster_scenarios_raise_not_implemented():
