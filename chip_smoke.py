@@ -17,7 +17,11 @@ and drives the port's paths, each in a counted window of its own:
   * serving: ``ServeEngine`` with qwen2.5-3b at full width (weights drawn on
     the card from ``--seed``) answering 8 requests, every decode step's
     attention through the paged CUDA kernel, two of the requests checked
-    against the dense decode path teacher-forced on the served tokens.
+    against the dense decode path teacher-forced on the served tokens;
+  * the kernel-ops entry point: ``benchmarks.kernels_bench_torch`` runs
+    flash attention, paged decode attention and wkv6 through
+    ``repro_torch.kernels.ops`` at the reference bench's full-width shapes
+    (llava-next-mistral-7b's attention heads, rwkv6-3b's WKV heads).
 
 It times the kernels and prints one JSON object per phase.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failing phase exits non-zero; there
@@ -51,12 +55,19 @@ from repro_torch.core.experiment import Experiment, RunOptions, Scenario
 from repro_torch.core.sim import generate_arrivals, simulate_compiled
 from repro_torch.core.sim import replay_torch as rt
 from repro_torch.kernels import _build
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_kv_gather as pk
 from repro_torch.kernels import sched_step as sk
 from repro_torch.kernels import token_clock as tc
-from repro_torch.kernels.ref import paged_decode_attention_ref
+from repro_torch.kernels import wkv6 as wk
+from repro_torch.kernels.ref import (flash_attention_ref,
+                                     paged_decode_attention_ref, wkv6_ref)
+from repro_torch.models import layers
 from repro_torch.models import transformer as tf
 from repro_torch.serve.engine import Request, ServeEngine
+
+from benchmarks import kernels_bench_torch as kbench
+from benchmarks.kernels_bench_torch import cuda_ms
 
 import _torch_kernel_cases as cases
 
@@ -97,6 +108,19 @@ LOGIT_TOL = 0.25
 # Ring depths (n_buffers) the paged kernel is timed at; the engine, like the
 # reference, runs it at 2.
 DEPTHS = (2, 4, 8)
+# Sequences of the kernel bench's paged shape held against the plain version
+# at a time: its gather, 4x head repeat and float32 copy take about 10 GB for
+# 8 sequences beside the 17.2 GB store (about 70 GB for all 128 at once).
+PAGED_BENCH_CHUNK = 8
+# Flash at the bench shapes against the blockwise twin: the largest error of
+# one query row relative to the row, ||got - want|| / ||want|| over its D
+# values.  Both sides sum in float32 (differences of order 1e-6) and round
+# the output to bfloat16, whose step is at most 2^-7 of a value, so outputs
+# one step apart in every element give at most 2^-7 = 0.0078.  The absolute
+# 3e-2 alone is about the size of a typical output there (|out| ~ sqrt(e/n)
+# for n visible keys: 0.04 at S 4096, 0.015 at S 32768), so it would pass a
+# fault on the far KV tiles that is wrong by tens of percent.
+FLASH_ROW_TOL = 1e-2
 
 # The serial chain of one scheduler step, as a model (assumed cycle counts,
 # not measured here): the least latency of the operations that the next
@@ -129,29 +153,20 @@ def fail(msg):
     sys.exit(1)
 
 
-def cuda_ms(fn, reps):
-    """Mean milliseconds of ``fn()`` over ``reps`` calls, by CUDA events."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+KERNELS = {"fused_steps": sk.fused_steps,
+           "token_clock_update": tc.token_clock_update,
+           "paged_decode_attention": pk.paged_decode_attention,
+           "flash_attention": fa.flash_attention,
+           "wkv6": wk.wkv6}
 
 
 def reset_counts():
-    sk.fused_steps.launches = 0
-    tc.token_clock_update.launches = 0
-    pk.paged_decode_attention.launches = 0
+    for fn in KERNELS.values():
+        fn.launches = 0
 
 
 def counts():
-    return {"fused_steps": sk.fused_steps.launches,
-            "token_clock_update": tc.token_clock_update.launches,
-            "paged_decode_attention": pk.paged_decode_attention.launches}
+    return {name: fn.launches for name, fn in KERNELS.items()}
 
 
 def state_bytes(state):
@@ -570,11 +585,12 @@ def phase_timing(sc, art, sm_mhz):
 # -- paged decode attention and the serving path -------------------------------
 
 
-def phase_paged_checks():
+def phase_paged_checks(seed):
     """The paged attention kernel against its plain version on the card:
     the reference's five ``PAGED_CASES`` x n_buffers 2, 3, 4, the length-1 /
-    exactly-full edge case and the serving shape, each within the
-    reference's own tolerance (3e-2 bfloat16, 5e-5 float32)."""
+    exactly-full edge case, the serving shape and the kernel bench's shape,
+    each within the reference's own tolerance (3e-2 bfloat16, 5e-5
+    float32)."""
     checks, worst = [], {"bfloat16": 0.0, "float32": 0.0}
     named = [(f"paged-{i}", c) for i, c in enumerate(cases.PAGED_CASES)]
     named += [("edge-len1-full", cases.PAGED_EDGE),
@@ -596,9 +612,40 @@ def phase_paged_checks():
                 fail(f"paged_decode_attention disagrees with its plain "
                      f"version on {name}, n_buffers {nb}: max abs err {err} "
                      f"> {tol}")
+    # the kernel bench's shape (a full 17.2 GB store, inputs drawn as the
+    # bench draws them): the whole batch through the kernel, every sequence
+    # against the plain version, PAGED_BENCH_CHUNK sequences a call
+    pb = cases.PAGED_BENCH
+    q, kp, vp, bt, ln = kbench.paged_inputs(pb["B"], pb["Hq"], pb["Hkv"],
+                                            pb["S"], DEV, seed)
+    got = pk.paged_decode_attention(q, kp, vp, bt, ln)
+    finite = bool(torch.isfinite(got).all())
+    err, plain_ms = 0.0, 0.0
+    for i in range(0, pb["B"], PAGED_BENCH_CHUNK):
+        j = i + PAGED_BENCH_CHUNK
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = paged_decode_attention_ref(q[i:j], kp, vp, bt[i:j], ln[i:j])
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms += start.elapsed_time(end)
+        err = max(err, float((got[i:j].float() - want.float()).abs().max()))
+        del want
+    del q, kp, vp, bt, ln, got
+    torch.cuda.empty_cache()
+    checks.append({"case": "bench-shape", "n_buffers": 2,
+                   "dtype": pb["dtype"], "max_abs_err": err,
+                   "tol": cases.PAGED_TOL[pb["dtype"]],
+                   "sequences_checked": pb["B"],
+                   "plain_chunk": PAGED_BENCH_CHUNK})
+    worst["bfloat16"] = max(worst["bfloat16"], err)
+    if not (finite and err <= cases.PAGED_TOL[pb["dtype"]]):
+        fail(f"paged_decode_attention at the bench shape: max abs err {err} "
+             f"over all {pb['B']} sequences (finite: {finite})")
     emit("paged_checks", n_checks=len(checks), max_abs_err_by_dtype=worst,
-         checks=checks)
-    return worst
+         checks=checks, plain_ms_bench=plain_ms)
+    return worst, plain_ms
 
 
 def phase_serve_path(seed):
@@ -871,10 +918,171 @@ def phase_paged_timing():
     return rows
 
 
+# -- the kernel-ops entry point: flash attention, wkv6, the kernel bench -------
+
+
+def phase_flash_checks(seed):
+    """The flash kernel against its plain version on the card: the
+    reference's six ``FLASH_CASES`` and ``FLASH_LONG`` (1, 4096, 32/8 heads,
+    D 128, bf16, causal), within the reference's tolerance; then both
+    ``FLASH_BENCH`` shapes against the port's blockwise twin
+    (``models.layers.attention``, float32 online softmax over 1024-key
+    blocks), where the plain version's S x S scores would need 17-137 GB,
+    within 3e-2 absolute and ``FLASH_ROW_TOL`` relative to each row.
+    The twin's time at the bench shapes and the plain version's at
+    ``FLASH_LONG`` are the plain times of the kernels line."""
+    checks, worst = [], {"bfloat16": 0.0, "float32": 0.0}
+    named = [(f"flash-{i}", c) for i, c in enumerate(cases.FLASH_CASES)]
+    named.append(("long-4096", cases.FLASH_LONG))
+    plain_long_ms = None
+    for name, case in named:
+        c = cases.make_flash_case(case, seed=0)
+        q, k, v = cases.flash_tensors(c, DEV)
+
+        def plain():
+            return flash_attention_ref(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                c["causal"], c["window"]).transpose(1, 2)
+
+        got = fa.flash_attention(q, k, v, causal=c["causal"],
+                                 sliding_window=c["window"],
+                                 block_q=c["block_q"], block_k=c["block_k"])
+        want = plain()
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = cases.tol(c["dtype"])
+        checks.append({"case": name, "shape": list(case[:5]),
+                       "causal": c["causal"], "window": c["window"],
+                       "dtype": c["dtype"], "max_abs_err": err, "tol": tol})
+        worst[c["dtype"]] = max(worst[c["dtype"]], err)
+        if not err <= tol:
+            fail(f"flash_attention disagrees with its plain version on "
+                 f"{name}: max abs err {err} > {tol}")
+        if name == "long-4096":
+            plain_long_ms = cuda_ms(plain, 1)
+        del q, k, v, got, want
+    twin = []
+    for B, Hq, Hkv, S in cases.FLASH_BENCH:
+        t = flash_vs_twin(B, Hq, Hkv, S, seed)
+        if not (t["finite"] and t["max_abs_err_vs_twin"] <= t["tol"]
+                and t["max_row_rel_err_vs_twin"] <= t["row_tol"]):
+            fail(f"flash_attention at B{B} S{S} against the blockwise twin: "
+                 f"{t}")
+        worst["bfloat16"] = max(worst["bfloat16"], t["max_abs_err_vs_twin"])
+        twin.append(t)
+    emit("flash_checks", n_checks=len(checks) + len(twin),
+         max_abs_err_by_dtype=worst, checks=checks, bench_vs_twin=twin,
+         plain_ms_long_4096=plain_long_ms,
+         twin="repro_torch.models.layers.attention (blockwise, 1024-key "
+              "blocks, float32)")
+    return worst, twin, plain_long_ms
+
+
+def flash_vs_twin(B, Hq, Hkv, S, seed):
+    """The flash kernel and the blockwise twin on the bench's inputs at one
+    ``FLASH_BENCH`` shape: the largest absolute error, the largest error of
+    a query row relative to the row (``FLASH_ROW_TOL``), whether the output
+    is finite, and the twin's time (one launch after the compared one)."""
+    q, k, v = kbench.flash_inputs(B, Hq, Hkv, S, DEV, seed)
+
+    def blockwise():
+        return layers.attention(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=True)
+
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = blockwise().transpose(1, 2).float()
+    torch.cuda.synchronize()
+    diff = got.float() - want
+    err = float(diff.abs().max())
+    row = float((diff.norm(dim=-1)
+                 / want.norm(dim=-1).clamp_min(1e-30)).max())
+    finite = bool(torch.isfinite(got).all())
+    del got, want, diff
+    torch.cuda.empty_cache()
+    twin_ms = cuda_ms(blockwise, 1)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return {"shape": [B, Hq, Hkv, S, 128], "dtype": "bfloat16",
+            "finite": finite, "max_abs_err_vs_twin": err,
+            "tol": cases.tol("bfloat16"), "max_row_rel_err_vs_twin": row,
+            "row_tol": FLASH_ROW_TOL, "twin_ms": twin_ms}
+
+
+def phase_wkv_checks(seed):
+    """The wkv6 kernel against its plain version (the sequential float32
+    recurrence) on the reference's four ``WKV_CASES`` and at ``WKV_BENCH``
+    (rwkv6-3b's width, inputs drawn on the card as the bench draws them),
+    under the reference's scaled tolerance; the plain version's time at
+    ``WKV_BENCH``."""
+    checks, worst = [], {"bfloat16": 0.0, "float32": 0.0}
+    for i, case in enumerate(cases.WKV_CASES):
+        c = cases.make_wkv_case(case, seed=0)
+        args = cases.wkv_tensors(c, DEV)
+        got = wk.wkv6(*args, chunk=c["chunk"])
+        want = wkv6_ref(*args)
+        torch.cuda.synchronize()
+        err = cases.wkv_err(got, want)
+        tol = cases.tol(c["dtype"])
+        checks.append({"case": f"wkv-{i}", "shape": list(case[:4]),
+                       "chunk": c["chunk"], "dtype": c["dtype"],
+                       "scaled_max_abs_err": err, "tol": tol})
+        worst[c["dtype"]] = max(worst[c["dtype"]], err)
+        if not err <= tol:
+            fail(f"wkv6 disagrees with its plain version on wkv-{i}: scaled "
+                 f"max abs err {err} > {tol}")
+    B, S, H, D = cases.WKV_BENCH
+    r, k, v, lw, u = kbench.wkv_inputs(B, S, H, D, DEV, seed)
+    got = wk.wkv6(r, k, v, lw, u)
+    want = wkv6_ref(r, k, v, lw, u)
+    torch.cuda.synchronize()
+    err = cases.wkv_err(got, want)
+    if not (bool(torch.isfinite(got).all()) and err <= cases.tol("bfloat16")):
+        fail(f"wkv6 at the bench shape: scaled max abs err {err}")
+    worst["bfloat16"] = max(worst["bfloat16"], err)
+    plain_ms = cuda_ms(lambda: wkv6_ref(r, k, v, lw, u), 1)
+    checks.append({"case": "bench", "shape": [B, S, H, D], "chunk": 64,
+                   "dtype": "bfloat16 r/k/v, float32 log_w and u",
+                   "scaled_max_abs_err": err, "tol": cases.tol("bfloat16")})
+    del r, k, v, lw, u, got, want
+    torch.cuda.empty_cache()
+    emit("wkv_checks", n_checks=len(checks), max_abs_err_by_dtype=worst,
+         checks=checks, plain_ms_bench=plain_ms)
+    return worst, plain_ms
+
+
+def phase_kernels_bench(seed):
+    """The slice's main path: ``benchmarks.kernels_bench_torch`` runs its
+    three benches through ``repro_torch.kernels.ops`` at the reference's
+    full-width shapes.  The counts are set to 0 just before and read just
+    after; every bench row must be finite."""
+    reset_counts()
+    t0 = time.perf_counter()
+    rows = {fn.__name__: fn(seed) for fn in kbench.ALL}
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = counts()
+    for name in ("flash_attention", "paged_decode_attention", "wkv6"):
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the kernels_bench path")
+    if launches["fused_steps"] or launches["token_clock_update"]:
+        fail(f"the kernels_bench path launched a scheduler kernel: "
+             f"{launches}")
+    for bench in rows.values():
+        for row in bench:
+            if row.get("measured", True) and not (
+                    math.isfinite(row["ms"]) and row["ms"] > 0):
+                fail(f"kernels_bench row {row['name']}: time {row['ms']}")
+    emit("kernels_bench", wall_s=wall_s, launches=launches, rows=rows,
+         peak_flops=kbench.PEAK_FLOPS, hbm_bytes_per_s=kbench.HBM_BW)
+    return rows, launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the served model's weights and prompts")
+                    help="seed of the served model's weights and prompts, "
+                         "and of the kernel checks' and bench's inputs at "
+                         "full width")
     args = ap.parse_args()
     t_all = time.perf_counter()
     torch.cuda.set_device(0)
@@ -889,7 +1097,9 @@ def main():
          fused_steps_max_abs_err=err_fused,
          tolerance="every plane bit-equal; histogram: equal, or unit mass "
                    "moved between adjacent bins, same row total")
-    paged_err = phase_paged_checks()
+    paged_err, paged_bench_plain_ms = phase_paged_checks(args.seed)
+    flash_err, flash_twin, flash_plain_long_ms = phase_flash_checks(args.seed)
+    wkv_err, wkv_plain_ms = phase_wkv_checks(args.seed)
 
     sc, art, launches = phase_main_path()
     plain_launches = phase_plain_step_path(art)
@@ -941,7 +1151,59 @@ def main():
             "B", "ppseq", "tokens", "ms", "plain_ms", "composition_ms",
             "bound_ms", "bound_by")},
         tolerance="3e-2 bfloat16, 5e-5 float32 (absolute)")
-    kernels = [fused, tok, paged]
+    torch.cuda.empty_cache()
+    bench, bench_launches = phase_kernels_bench(args.seed)
+    paged["launches_kernels_bench"] = bench_launches["paged_decode_attention"]
+    pb = bench["paged_decode_bench"][0]
+    paged["kernels_bench"] = {k: pb[k] for k in (
+        "shape", "ms", "composition_ms", "bound_ms", "bound_by", "bytes",
+        "max_abs_diff_vs_composition")}
+    paged["kernels_bench"]["plain_ms"] = paged_bench_plain_ms
+
+    f_rows = bench["flash_attention_bench"]
+    B, Hq, Hkv, S, D = f_rows[0]["shape"]
+    flash = dict(
+        name="flash_attention.flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:75",
+        launches=bench_launches["flash_attention"], path="kernels_bench",
+        max_abs_err=max(flash_err.values()),
+        max_abs_err_by_dtype=flash_err, ms=f_rows[0]["ms"],
+        plain_ms=flash_twin[0]["twin_ms"],
+        plain="the port's blockwise twin, models.layers.attention (the "
+              "S x S plain version needs 17 GB here); flash_attention_ref "
+              "at (1, 4096): see plain_ms_long_4096",
+        plain_ms_long_4096=flash_plain_long_ms,
+        bound_ms=f_rows[0]["bound_ms"], bound_by=f_rows[0]["bound_by"],
+        library_ms=f_rows[0]["library_ms"],
+        library="F.scaled_dot_product_attention(is_causal=True, "
+                "enable_gqa=True)",
+        shape={"B": B, "Hq": Hq, "Hkv": Hkv, "S": S, "D": D,
+               "dtype": "bfloat16", "causal": True},
+        long_context=dict(zip(("ms", "library_ms", "plain_ms", "bound_ms"),
+                              (f_rows[1]["ms"], f_rows[1]["library_ms"],
+                               flash_twin[1]["twin_ms"],
+                               f_rows[1]["bound_ms"])),
+                          shape=f_rows[1]["shape"]),
+        max_row_rel_err_vs_twin=max(t["max_row_rel_err_vs_twin"]
+                                    for t in flash_twin),
+        tolerance="3e-2 bfloat16, 5e-5 float32 (absolute); at the bench "
+                  f"shapes also {FLASH_ROW_TOL} relative to each row")
+    w_row = bench["wkv6_bench"][0]
+    wkv = dict(
+        name="wkv6.wkv6", route="cuda",
+        source="src/repro_torch/kernels/csrc/wkv6.cu",
+        replaces="src/repro/kernels/wkv6.py:56",
+        launches=bench_launches["wkv6"], path="kernels_bench",
+        max_abs_err=max(wkv_err.values()), max_abs_err_by_dtype=wkv_err,
+        ms=w_row["ms"], plain_ms=wkv_plain_ms, bound_ms=w_row["bound_ms"],
+        bound_by=w_row["bound_by"], library_ms=None,
+        library="none: no PyTorch call computes it",
+        shape=dict(zip(("B", "S", "H", "D"), w_row["shape"]),
+                   dtype="bfloat16 r/k/v, float32 log_w and u"),
+        tolerance="3e-2 bfloat16, 5e-5 float32, absolute after dividing by "
+                  "max|plain| + 1e-6")
+    kernels = [fused, tok, paged, flash, wkv]
     total_s = time.perf_counter() - t_all
     emit("total", seconds=total_s)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -9,8 +9,10 @@ of the compiler flags, so an edited source never runs a stale binary.
 
 ``-fmad=false`` is part of the contract, not a tuning choice: the scheduler
 kernels are held bit for bit against their plain PyTorch versions, and eager
-PyTorch never contracts ``a * b + c`` into a fused multiply-add.  (The paged
-attention kernel is held to a tolerance and would not need the flag.)
+PyTorch never contracts ``a * b + c`` into a fused multiply-add.  (The
+attention-family kernels -- paged decode, flash attention, wkv6 -- are held
+to a tolerance and would not need the flag; their explicit ``fmaf`` is not
+affected by it.)
 """
 from __future__ import annotations
 
@@ -33,7 +35,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 #: library name -> translation unit under ``csrc/``
 KERNEL_SOURCES = {"sched_step": "sched_step.cu",
                   "token_clock": "token_clock.cu",
-                  "paged_kv_gather": "paged_kv_gather.cu"}
+                  "paged_kv_gather": "paged_kv_gather.cu",
+                  "flash_attention": "flash_attention.cu",
+                  "wkv6": "wkv6.cu"}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -17,45 +17,12 @@
 // free.  The products are explicit fmaf, so -fmad=false does not split them.
 // The work is bound by bytes (each page row of head h is read once); this
 // version uses no tensor cores and keeps one block per (sequence, KV head).
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "dtype.cuh"
 
 #define PD_THREADS 128
 #define PD_WARPS (PD_THREADS / 32)
 #define PD_NEG_INF (-1e30f)
 #define PD_PV_ROWS 8
-
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(
-    __nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);   // round to nearest even, as torch's .to()
-}
-
-// four consecutive elements (8- or 16-byte aligned) as float32
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 w = *reinterpret_cast<const uint2*>(p);
-  const float2 lo =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w.x));
-  const float2 hi =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
@@ -86,19 +53,6 @@ __device__ __forceinline__ void cp_async_wait_upto(int n) {
     case 6: cp_async_wait<6>(); break;
     default: cp_async_wait<7>(); break;
   }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
 }
 
 template <typename T>

@@ -18,6 +18,14 @@ exactly-full edge case (``tests/test_kernels.py``), the serving shape of
 qwen2.5-3b and one long-context shape, with inputs drawn by numpy from a seed
 (:func:`make_paged_case`).  Contract: within ``PAGED_TOL`` of the plain
 version (the reference's own ``_tol``), absolute, per dtype.
+
+Flash attention and wkv6: the reference's ``FLASH_CASES`` and ``WKV_CASES``
+with inputs drawn by numpy from a seed (:func:`make_flash_case`,
+:func:`make_wkv_case`), and the full-width shapes of the reference's kernel
+bench (``benchmarks/kernels_bench.py``): ``FLASH_BENCH``, ``WKV_BENCH``,
+``PAGED_BENCH``.  Contract: within :func:`tol` of the plain version,
+absolute; for wkv6 after dividing both sides by ``max|plain| + 1e-6``
+(:func:`wkv_err`), as ``tests/test_kernels.py`` holds it.
 """
 from __future__ import annotations
 
@@ -31,7 +39,10 @@ from repro_torch.kernels.token_clock import token_clock_update_ref
 __all__ = ["FLAG_SETS", "make_case", "step_args", "states_agree",
            "hist_equal_or_adjacent", "run_plain", "run_fused",
            "PAGED_CASES", "PAGED_EDGE", "PAGED_SERVE", "PAGED_LONG",
-           "PAGED_TOL", "MODEL_TOL", "make_paged_case", "paged_tensors"]
+           "PAGED_TOL", "MODEL_TOL", "make_paged_case", "paged_tensors",
+           "tol", "FLASH_CASES", "FLASH_LONG", "FLASH_BENCH", "make_flash_case",
+           "flash_tensors", "WKV_CASES", "WKV_BENCH", "make_wkv_case",
+           "wkv_tensors", "wkv_err", "PAGED_BENCH"]
 
 US = 1e-6
 
@@ -287,3 +298,105 @@ def paged_tensors(c: dict, device="cpu"):
     i = [torch.from_numpy(c[n]).to(device) for n in ("block_tables",
                                                        "lengths")]
     return (*f, *i)
+
+
+# -- flash attention and wkv6 -------------------------------------------------
+
+
+def tol(dtype: str) -> float:
+    """The reference's ``_tol`` (tests/test_kernels.py:18): absolute, 3e-2
+    in bfloat16 (an 8-bit significand on outputs of order 1) and 5e-5 in
+    float32 (sums of up to a few thousand float32 products taken in another
+    order)."""
+    return 3e-2 if dtype == "bfloat16" else 5e-5
+
+
+#: (B, S, Hq, Hkv, D, causal, window, dtype, block_q, block_k):
+#: tests/test_kernels.py:22-29
+FLASH_CASES = [
+    (2, 256, 4, 2, 64, True, None, "float32", 128, 128),
+    (1, 512, 2, 2, 128, True, None, "bfloat16", 128, 256),
+    (2, 384, 4, 1, 64, False, None, "float32", 128, 128),
+    (1, 512, 4, 2, 64, True, 128, "float32", 128, 128),
+    (1, 256, 8, 8, 128, True, None, "bfloat16", 64, 64),
+    (3, 128, 2, 1, 32, True, None, "float32", 64, 64),
+]
+
+#: llava-next-mistral-7b's language-model heads at a 4k context, batch 1:
+#: the widest shape at which the plain version's S x S scores (2.1 GB in
+#: float32) still fit beside the kernel on the card
+FLASH_LONG = (1, 4096, 32, 8, 128, True, None, "bfloat16", 256, 256)
+
+#: (B, Hq, Hkv, S) at D 128, causal, bfloat16: benchmarks/kernels_bench.py:30
+FLASH_BENCH = [(8, 32, 8, 4096), (1, 32, 8, 32768)]
+
+#: (B, S, H, D) at rwkv6-3b's width, bfloat16 r/k/v, float32 log_w and u:
+#: benchmarks/kernels_bench.py:66
+WKV_BENCH = (8, 4096, 40, 64)
+
+#: (B, Hq, Hkv, S) at D 128, 64-token pages, bfloat16, every sequence full:
+#: benchmarks/kernels_bench.py:41 (a 17.2 GB page store)
+PAGED_BENCH = dict(B=128, Hq=32, Hkv=8, S=32768, D=128, page=64,
+                   dtype="bfloat16")
+
+#: (B, S, H, D, chunk, dtype): tests/test_kernels.py:96-101
+WKV_CASES = [
+    (2, 64, 2, 32, 16, "float32"),
+    (1, 128, 4, 64, 64, "float32"),
+    (2, 64, 2, 64, 32, "bfloat16"),
+    (1, 96, 1, 32, 32, "float32"),
+]
+
+
+def make_flash_case(case, seed: int = 0) -> dict:
+    """Numpy inputs of one flash-attention check, sequence-major
+    ``(B, S, H, D)`` float32 arrays (the caller casts to ``dtype``), drawn
+    as standard normals like the reference's test."""
+    B, S, Hq, Hkv, D, causal, window, dtype, bq, bk = case
+    rng = np.random.default_rng(seed)
+    return dict(
+        dtype=dtype, causal=causal, window=window, block_q=bq, block_k=bk,
+        q=rng.standard_normal((B, S, Hq, D)).astype(np.float32),
+        k=rng.standard_normal((B, S, Hkv, D)).astype(np.float32),
+        v=rng.standard_normal((B, S, Hkv, D)).astype(np.float32))
+
+
+def flash_tensors(c: dict, device="cpu", head_major: bool = True):
+    """``(q, k, v)`` of a case on ``device`` in its dtype, head-major
+    ``(B, H, S, D)`` contiguous (the kernel's layout) or sequence-major."""
+    dt = getattr(torch, c["dtype"])
+    out = []
+    for n in ("q", "k", "v"):
+        t = torch.from_numpy(c[n]).to(device=device, dtype=dt)
+        out.append(t.transpose(1, 2).contiguous() if head_major else t)
+    return tuple(out)
+
+
+def make_wkv_case(case, seed: int = 0) -> dict:
+    """Numpy inputs of one wkv6 check, scaled as the reference's test:
+    r, k, v standard normal x 0.5, ``log_w = -exp(0.5 N)``, u = 0.3 N."""
+    B, S, H, D, chunk, dtype = case
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((B, S, H, D)).astype(np.float32) * 0.5
+               for _ in range(3))
+    lw = -np.exp(rng.standard_normal((B, S, H, D)).astype(np.float32) * 0.5)
+    u = rng.standard_normal((H, D)).astype(np.float32) * 0.3
+    return dict(dtype=dtype, chunk=chunk, r=r, k=k, v=v, log_w=lw, u=u)
+
+
+def wkv_tensors(c: dict, device="cpu"):
+    """``(r, k, v, log_w, u)`` on ``device``: r, k, v in the case's dtype,
+    log_w and u in float32 (as the reference's test leaves them)."""
+    dt = getattr(torch, c["dtype"])
+    f = [torch.from_numpy(c[n]).to(device=device, dtype=dt)
+         for n in ("r", "k", "v")]
+    return (*f, torch.from_numpy(c["log_w"]).to(device),
+            torch.from_numpy(c["u"]).to(device))
+
+
+def wkv_err(got, want) -> float:
+    """Max abs difference after dividing both by ``max|want| + 1e-6`` (the
+    reference's scaled ``atol``, tests/test_kernels.py:113-117)."""
+    g, w = got.float(), want.float()
+    scale = float(w.abs().max()) + 1e-6
+    return float((g / scale - w / scale).abs().max())

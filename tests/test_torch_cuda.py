@@ -1,7 +1,8 @@
 """The port's CUDA kernels on a card -- the tests that need an NVIDIA GPU:
 the scheduler kernels bit-equal to their plain versions, paged decode
-attention within ``PAGED_TOL`` of its plain version, and a small serving
-run through the paged kernel.
+attention within ``PAGED_TOL`` of its plain version, a small serving run
+through the paged kernel, and flash attention and wkv6 within the
+reference's tolerance of their plain versions.
 
 They import the port only (no jax), so they run on the GPU machine with::
 
@@ -21,11 +22,14 @@ from repro_torch.core.engines import run_trace
 from repro_torch.core.experiment import Experiment, Scenario
 from repro_torch.core.sim import SimConfig
 from repro_torch.core.sim import replay_torch as rt
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import paged_kv_gather as pk
 from repro_torch.kernels import sched_step as sk
 from repro_torch.kernels import token_clock as tc
-from repro_torch.kernels.ref import paged_decode_attention_ref
+from repro_torch.kernels import wkv6 as wk
+from repro_torch.kernels.ref import (flash_attention_ref,
+                                     paged_decode_attention_ref, wkv6_ref)
 
 import _torch_kernel_cases as cases
 
@@ -163,3 +167,64 @@ def test_serve_engine_on_the_card_agrees_with_the_dense_path(cuda):
         logits, cache = tf.decode_step(eng.params, cache, tok, cfg)
         err = float((logits[0, 0].float() - paged[t]).abs().max())
         assert err <= cases.MODEL_TOL, (t, err)
+
+
+# -- flash attention and wkv6 --------------------------------------------------
+
+
+@pytest.mark.parametrize("case", cases.FLASH_CASES + [cases.FLASH_LONG],
+                         ids=[f"flash-{i}" for i in range(6)] + ["long-4096"])
+def test_flash_kernel_matches_plain_version(cuda, case):
+    c = cases.make_flash_case(case, seed=0)
+    q, k, v = cases.flash_tensors(c, cuda)
+    before = fa.flash_attention.launches
+    got = kops.flash_attention(q, k, v, causal=c["causal"],
+                               sliding_window=c["window"],
+                               block_q=c["block_q"], block_k=c["block_k"])
+    want = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), c["causal"],
+                               c["window"]).transpose(1, 2)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert got.dtype == want.dtype and got.shape == want.shape
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= cases.tol(c["dtype"]), err
+
+
+def test_flash_kernel_takes_strided_head_major_views(cuda):
+    """The reference's tests hand the kernel transposed arrays; so may a
+    caller here."""
+    c = cases.make_flash_case(cases.FLASH_CASES[0], seed=1)
+    q, k, v = cases.flash_tensors(c, cuda, head_major=False)
+    got = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2))
+    want = flash_attention_ref(q, k, v).transpose(1, 2)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= cases.tol("float32")
+
+
+@pytest.mark.parametrize("case", cases.WKV_CASES,
+                         ids=[f"wkv-{i}" for i in range(4)])
+def test_wkv6_kernel_matches_plain_version(cuda, case):
+    c = cases.make_wkv_case(case, seed=0)
+    args = cases.wkv_tensors(c, cuda)
+    before = wk.wkv6.launches
+    got = kops.wkv6(*args, chunk=c["chunk"])
+    want = wkv6_ref(*args)
+    torch.cuda.synchronize()
+    assert wk.wkv6.launches == before + 1
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert cases.wkv_err(got, want) <= cases.tol(c["dtype"])
+
+
+def test_flash_and_wkv6_kernels_refuse_what_they_do_not_take(cuda):
+    c = cases.make_flash_case(cases.FLASH_CASES[0], seed=2)
+    q, k, v = cases.flash_tensors(c, cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(q[..., :48], k[..., :48], v[..., :48])
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_attention(q.half(), k.half(), v.half())
+    w = cases.make_wkv_case(cases.WKV_CASES[0], seed=2)
+    r, kk, vv, lw, u = cases.wkv_tensors(w, cuda)
+    with pytest.raises(ValueError, match="chunk multiple"):
+        wk.wkv6(r[:, :60], kk[:, :60], vv[:, :60], lw[:, :60], u, chunk=16)

@@ -1,6 +1,7 @@
 """The port stands alone: it imports ``torch`` and numpy, never ``jax``,
 ``jaxlib``, ``ml_dtypes`` or anything of the reference package ``repro`` --
-not on import, not after a grid run, not after serving a request."""
+not on import (the kernel ops and the port's kernel bench included), not
+after a grid run, not after serving a request."""
 import re
 import subprocess
 import sys
@@ -20,6 +21,8 @@ def foreign():
 import repro_torch
 import repro_torch.core
 import repro_torch.serve.engine
+import repro_torch.kernels.ops
+import benchmarks.kernels_bench_torch
 after_import = foreign()
 from repro_torch.core.experiment import Experiment, RunOptions, Scenario
 doc = json.load(open(sys.argv[1]))
