@@ -42,7 +42,7 @@ from repro_torch.kernels import ops
 __all__ = ["PEAK_FLOPS", "PEAK_FLOPS_F32", "HBM_BW", "FLASH_SHAPES",
            "PAGED_SHAPES", "WKV_SHAPE", "flash_counts", "paged_counts",
            "wkv6_counts", "wkv6_card_bytes", "analytic_rows", "theta_rows",
-           "model_time", "card_bound", "card",
+           "model_time", "card_bound", "card", "card_state", "FLASH_WARMUP",
            "flash_inputs", "paged_inputs", "wkv_inputs",
            "flash_attention_bench", "paged_decode_bench", "wkv6_bench",
            "ALL", "main"]
@@ -60,8 +60,10 @@ PAGED_SHAPES = ((128, 32, 8, 32768),)
 #: (B, S, H, D): benchmarks/kernels_bench.py:66
 WKV_SHAPE = (8, 4096, 40, 64)
 D_ATTN, PAGE = 128, 64
-#: timed launches after the warm-up, per bench (one at the 32k flash shape)
-REPS = {"flash": 5, "flash_long": 1, "paged": 5, "wkv6": 10}
+#: timed launches after the warm-up, per bench (three at the 32k flash shape)
+REPS = {"flash": 5, "flash_long": 3, "paged": 5, "wkv6": 10}
+#: untimed calls of the flash kernel and of SDPA before their timed windows
+FLASH_WARMUP = 2
 
 
 def emit(name: str, us_per_call: float, derived) -> None:
@@ -254,10 +256,29 @@ def wkv_inputs(B, S, H, D, dev, seed=0):
     return r, k, v, lw, u
 
 
+def card_state() -> dict:
+    """The card's SM clock (MHz), power draw (W) and temperature (C) as
+    ``nvidia-smi`` reads them now."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    if smi.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")
+    line = smi.stdout.strip().splitlines()[torch.cuda.current_device()]
+    clock, power, temp = (float(x) for x in line.split(","))
+    return {"sm_mhz": clock, "power_w": power, "temp_c": temp}
+
+
 def flash_attention_bench(seed: int = 0) -> list[dict]:
     """``ops.flash_attention`` (head-major, causal, bf16) and
     ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` on
-    the same inputs, at both reference shapes."""
+    the same inputs, at both reference shapes.  After ``FLASH_WARMUP``
+    calls of each, the two are timed in turns (kernel, library, kernel,
+    library; ``reps`` launches a window): the first launches of a process
+    run at a lower clock, and the card's clock moves with its heat.  ``ms``
+    and ``library_ms`` are the means over both windows; the row keeps each
+    window and the card's clock, power and temperature after them."""
     dev = _require_card()
     rows = []
     for B, Hq, Hkv, S in FLASH_SHAPES:
@@ -271,10 +292,18 @@ def flash_attention_bench(seed: int = 0) -> list[dict]:
             return F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                   enable_gqa=True)
 
-        out = kernel()                              # warm-up
-        ms = cuda_ms(kernel, reps)
-        lib = library()                             # warm-up
-        lib_ms = cuda_ms(library, reps)
+        for _ in range(FLASH_WARMUP):
+            kernel()
+            library()
+        windows = {"kernel": [], "library": []}
+        for _ in range(2):
+            windows["kernel"].append(cuda_ms(kernel, reps))
+            windows["library"].append(cuda_ms(library, reps))
+        state = card_state()
+        ms = sum(windows["kernel"]) / 2
+        lib_ms = sum(windows["library"]) / 2
+        out = kernel()
+        lib = library()
         torch.cuda.synchronize()
         if not bool(torch.isfinite(out).all()):
             raise RuntimeError(f"flash_attention B{B} S{S}: non-finite output")
@@ -282,6 +311,7 @@ def flash_attention_bench(seed: int = 0) -> list[dict]:
         rows.append(_row(f"kernels/flash/B{B}S{S}", ms,
                          *flash_counts(B, Hq, Hkv, S), lib_ms,
                          dict(shape=[B, Hq, Hkv, S, D_ATTN], reps=reps,
+                              windows_ms=windows, card_state=state,
                               max_abs_diff_vs_library=diff)))
         del q, k, v, out, lib
         torch.cuda.empty_cache()

@@ -132,6 +132,11 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def check_launch(code: int, what: str) -> None:
-    """Raise if a C entry point returned a non-zero ``cudaError_t``."""
+    """Raise if a C entry point returned a non-zero ``cudaError_t`` (or, as a
+    negative number, the ``CUresult`` with which ``cuTensorMapEncodeTiled``
+    refused a TMA tensor map)."""
+    if code < 0:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled refused a TMA "
+                           f"tensor map (CUresult {-code})")
     if code != 0:
         raise RuntimeError(f"{what}: CUDA launch failed (cudaError {code})")

@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.sim.replay_torch import resolve_device
+
 __all__ = ["params_from_numpy", "tensor_from_numpy"]
 
 
@@ -27,11 +29,16 @@ def tensor_from_numpy(arr, device="cpu") -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True)).to(device)
 
 
-def params_from_numpy(tree, device="cpu"):
+def params_from_numpy(tree, device=None):
     """A nested dict (or list/tuple) of arrays -> the same nesting of
-    tensors on ``device``."""
+    tensors on ``device`` (``None``: the card, ``RuntimeError`` without one;
+    pass ``device="cpu"`` for the host)."""
+    return _to_tensors(tree, resolve_device(device))
+
+
+def _to_tensors(tree, device):
     if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+        return {k: _to_tensors(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(params_from_numpy(v, device) for v in tree)
+        return type(tree)(_to_tensors(v, device) for v in tree)
     return tensor_from_numpy(tree, device)

@@ -18,6 +18,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from ..core.sim.replay_torch import resolve_device
 from .layers import (
     DTYPE,
     ParamSpec,
@@ -145,7 +146,10 @@ def cache_window(cfg, max_len: int) -> int:
     return max_len
 
 
-def init_cache(cfg, batch: int, max_len: int, device="cpu") -> dict:
+def init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
+    """Zeroed K/V cache and positions on ``device`` (``None``: the card,
+    ``RuntimeError`` without one; pass ``device="cpu"`` for the host)."""
+    device = resolve_device(device)
     W = cache_window(cfg, max_len)
     kv_shape = (cfg.n_layers, batch, W, cfg.n_kv_heads, cfg.head_dim)
     return {

@@ -40,7 +40,8 @@ __all__ = ["FLAG_SETS", "make_case", "step_args", "states_agree",
            "hist_equal_or_adjacent", "run_plain", "run_fused",
            "PAGED_CASES", "PAGED_EDGE", "PAGED_SERVE", "PAGED_LONG",
            "PAGED_TOL", "MODEL_TOL", "make_paged_case", "paged_tensors",
-           "tol", "FLASH_CASES", "FLASH_LONG", "FLASH_BENCH", "make_flash_case",
+           "tol", "FLASH_CASES", "FLASH_LONG", "FLASH_BENCH", "FLASH_TC_CASES",
+           "FLASH_ROW_TOL", "row_rel_err", "make_flash_case",
            "flash_tensors", "WKV_CASES", "WKV_BENCH", "make_wkv_case",
            "wkv_tensors", "wkv_err", "PAGED_BENCH"]
 
@@ -326,6 +327,47 @@ FLASH_CASES = [
 #: the widest shape at which the plain version's S x S scores (2.1 GB in
 #: float32) still fit beside the kernel on the card
 FLASH_LONG = (1, 4096, 32, 8, 128, True, None, "bfloat16", 256, 256)
+
+#: bfloat16 cases for the tensor-core instance (``wgmma_bf16``): between
+#: them every head_dim (32: 64-byte swizzle; 64: one 128-byte box; 128: two
+#: boxes), no mask, causal, windows 128 and 300 with their edge inside
+#: S 1000, GQA groups of 1, 4 and 8, ragged S of 1, 63, 200 and 1000 (below
+#: one 128-row tile, a partial last tile, several tiles), and B > 1; the last
+#: has 512 blocks of 128 rows, more than the card's 132 SMs take at once.
+#: The
+#: reference's block sizes (its tiling, which the CUDA kernel ignores)
+#: divide S or exceed it: its Pallas kernel, run in interpret mode, reads
+#: the rows past S of a partial KV block as NaN, and 0 x NaN reaches its P V
+FLASH_TC_CASES = [
+    (2, 1, 4, 4, 128, True, None, "bfloat16", 256, 256),
+    (2, 63, 4, 4, 32, True, None, "bfloat16", 256, 256),
+    (1, 63, 8, 2, 64, False, None, "bfloat16", 256, 256),
+    (2, 200, 8, 1, 32, True, None, "bfloat16", 256, 256),
+    (1, 200, 4, 1, 128, False, None, "bfloat16", 256, 256),
+    (1, 1000, 8, 2, 128, True, 128, "bfloat16", 200, 200),
+    (1, 1000, 4, 4, 64, True, 300, "bfloat16", 200, 200),
+    (2, 1000, 8, 1, 32, False, None, "bfloat16", 200, 200),
+    (1, 1000, 8, 8, 128, True, None, "bfloat16", 200, 200),
+    (4, 1000, 16, 4, 64, True, 300, "bfloat16", 200, 200),
+]
+
+#: bfloat16 flash outputs against a float32-summed version of the same
+#: function: the largest error of one query row relative to the row,
+#: ``||got - want|| / ||want||`` over its D values (:func:`row_rel_err`).
+#: Both sides round the output to bfloat16, whose step is at most 2^-7 of a
+#: value, so outputs one step apart in every element give at most 2^-7 =
+#: 0.0078.  Beside the absolute 3e-2, which is about the size of a typical
+#: output at long S (|out| ~ sqrt(e/n) for n visible keys: 0.05 at S 1000,
+#: 0.015 at S 32768) and alone would pass a layout fault.
+FLASH_ROW_TOL = 1e-2
+
+
+def row_rel_err(got, want) -> float:
+    """Largest ``||got - want|| / ||want||`` over the rows (last axis)."""
+    g, w = got.float(), want.float()
+    return float(((g - w).norm(dim=-1)
+                  / w.norm(dim=-1).clamp_min(1e-30)).max())
+
 
 #: (B, Hq, Hkv, S) at D 128, causal, bfloat16: benchmarks/kernels_bench.py:30
 FLASH_BENCH = [(8, 32, 8, 4096), (1, 32, 8, 32768)]

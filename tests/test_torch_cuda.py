@@ -189,6 +189,32 @@ def test_flash_kernel_matches_plain_version(cuda, case):
     assert got.dtype == want.dtype and got.shape == want.shape
     err = float((got.float() - want.float()).abs().max())
     assert err <= cases.tol(c["dtype"]), err
+    assert cases.row_rel_err(got, want) <= cases.FLASH_ROW_TOL
+
+
+@pytest.mark.parametrize("case", cases.FLASH_TC_CASES,
+                         ids=[f"tc-{i}" for i in
+                              range(len(cases.FLASH_TC_CASES))])
+def test_flash_tensor_core_instance_matches_plain_version(cuda, case):
+    """Every layout of the ``wgmma_bf16`` instance (head_dims, masks, GQA
+    groups, ragged S): 3e-2 absolute and ``FLASH_ROW_TOL`` per row."""
+    c = cases.make_flash_case(case, seed=0)
+    q, k, v = cases.flash_tensors(c, cuda)
+    before = dict(fa.flash_attention.launches_by_instance)
+    got = kops.flash_attention(q, k, v, causal=c["causal"],
+                               sliding_window=c["window"],
+                               block_q=c["block_q"], block_k=c["block_k"])
+    want = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), c["causal"],
+                               c["window"]).transpose(1, 2)
+    torch.cuda.synchronize()
+    after = fa.flash_attention.launches_by_instance
+    assert after["wgmma_bf16"] == before["wgmma_bf16"] + 1
+    assert after["scalar_f32"] == before["scalar_f32"]
+    assert bool(torch.isfinite(got).all())
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= cases.tol("bfloat16"), err
+    assert cases.row_rel_err(got, want) <= cases.FLASH_ROW_TOL
 
 
 def test_flash_kernel_takes_strided_head_major_views(cuda):

@@ -26,6 +26,10 @@ import _torch_kernel_cases as cases
 
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 IDS = [f"flash-{i}" for i in range(len(cases.FLASH_CASES))]
+TC_IDS = ["tc-B{}-S{}-H{}/{}-D{}-{}{}".format(
+    B, S, Hq, Hkv, D, "causal" if causal else "full",
+    f"-w{w}" if w else "")
+    for B, S, Hq, Hkv, D, causal, w, *_ in cases.FLASH_TC_CASES]
 
 
 def f32(x):
@@ -54,6 +58,28 @@ def test_ops_matches_reference_kernel(case):
     assert tuple(got.shape) == tuple(want.shape)
     np.testing.assert_allclose(f32(got), f32(want), atol=cases.tol(c["dtype"]),
                                rtol=0)
+
+
+@pytest.mark.parametrize("case", cases.FLASH_TC_CASES, ids=TC_IDS)
+def test_ops_matches_reference_kernel_on_tensor_core_cases(case):
+    """The cases that cover every layout of the CUDA kernel's tensor-core
+    instance, through the plain path here: 3e-2 absolute and
+    ``FLASH_ROW_TOL`` relative to each query row."""
+    c = cases.make_flash_case(case, seed=0)
+    q, k, v = (x.transpose(0, 2, 1, 3) for x in _jax_inputs(c))
+    want = ref_ops.flash_attention(
+        q, k, v, causal=c["causal"], sliding_window=c["window"],
+        block_q=c["block_q"], block_k=c["block_k"])
+    got = ops.flash_attention(
+        *cases.flash_tensors(c, "cpu"), causal=c["causal"],
+        sliding_window=c["window"], block_q=c["block_q"],
+        block_k=c["block_k"])
+    assert got.dtype == torch.bfloat16
+    assert tuple(got.shape) == tuple(want.shape)
+    want = torch.from_numpy(np.array(f32(want)))
+    np.testing.assert_allclose(f32(got), want.numpy(), atol=cases.tol(
+        "bfloat16"), rtol=0)
+    assert cases.row_rel_err(got, want) <= cases.FLASH_ROW_TOL
 
 
 @pytest.mark.parametrize("case", cases.FLASH_CASES, ids=IDS)
@@ -108,9 +134,34 @@ def test_shared_memory_of_every_head_dim():
     # D 128: q and K/V tiles 64 x 132 floats, scores 64 x 68, 3 x 64 scalars
     assert fa.smem_bytes(128) == 4 * (2 * 64 * 132 + 64 * 68 + 3 * 64) \
         == 85_760
+    assert fa.smem_bytes(128, "scalar_f32") == fa.smem_bytes(128)
     for D in fa.HEAD_DIMS:
         # two blocks an SM fit in its 228 KiB
         assert 2 * fa.smem_bytes(D) <= fa.MAX_SMEM_BYTES
+        # wgmma_bf16: alignment slack, the bf16 Q tile (128 rows), three
+        # stages of a K and a V tile (128 rows each), 13 barriers
+        tc = fa.smem_bytes(D, "wgmma_bf16")
+        assert tc == 1024 + 2 * D * (128 + 2 * 3 * 128) + 8 * 13
+        assert tc <= fa.MAX_SMEM_BYTES
+    assert fa.smem_bytes(128, "wgmma_bf16") == 230_504
+    with pytest.raises(ValueError, match="instance"):
+        fa.smem_bytes(64, "tf32")
+
+
+@pytest.mark.parametrize("dtype,instance,threads,rows,grid", [
+    ("bfloat16", "wgmma_bf16", 384, 128, (3, 16)),
+    ("float32", "scalar_f32", 256, 64, (16, 5)),
+])
+def test_launch_plan_picks_the_instance_by_dtype(dtype, instance, threads,
+                                                 rows, grid):
+    c = cases.make_flash_case((2, 300, 8, 2, 64, True, None, dtype, 128, 128),
+                              seed=6)
+    plan = fa.launch_plan(*cases.flash_tensors(c, "cpu"))
+    assert plan["instance"] == fa.instance_for(getattr(torch, dtype)) \
+        == instance
+    assert (plan["threads"], plan["block_q"]) == (threads, rows)
+    assert plan["grid"] == grid
+    assert plan["smem"] == fa.smem_bytes(64, instance)
 
 
 def _args(**over):

@@ -51,7 +51,8 @@ def small_model():
         sliding_window=None)
     cfg = smoke_config(ARCHS["qwen2.5-3b"]).replace(sliding_window=None)
     rp = ref_init_params(ref_tf.param_specs(rcfg), jax.random.PRNGKey(0))
-    return rcfg, cfg, rp, params_from_numpy(jax.tree.map(np.asarray, rp))
+    return rcfg, cfg, rp, params_from_numpy(jax.tree.map(np.asarray, rp),
+                                            device="cpu")
 
 
 class TestPagedKVCache:

@@ -43,7 +43,7 @@ def model(request):
     rcfg = ref_smoke_config(REF_ARCHS[arch]).replace(sliding_window=win)
     cfg = smoke_config(ARCHS[arch]).replace(sliding_window=win)
     rp = ref_init_params(ref_tf.param_specs(rcfg), jax.random.PRNGKey(0))
-    pp = params_from_numpy(jax.tree.map(np.asarray, rp))
+    pp = params_from_numpy(jax.tree.map(np.asarray, rp), device="cpu")
     toks = np.random.default_rng(0).integers(1, cfg.vocab, (2, S))
     return rcfg, cfg, rp, pp, toks.astype(np.int32), max_len
 
@@ -105,7 +105,23 @@ def test_init_cache_and_window():
     cfg = smoke_config(ARCHS["starcoder2-3b"])
     assert tf.cache_window(cfg, 1000) == cfg.sliding_window
     assert tf.cache_window(cfg.replace(sliding_window=None), 1000) == 1000
-    c = tf.init_cache(cfg, 3, 40)
+    c = tf.init_cache(cfg, 3, 40, device="cpu")
     assert tuple(c["k"].shape) == (cfg.n_layers, 3, 40, cfg.n_kv_heads,
                                    cfg.head_dim)
     assert c["k"].dtype == torch.bfloat16 and c["pos"].dtype == torch.int32
+
+
+def test_default_device_is_the_card():
+    """``init_cache`` and ``params_from_numpy`` default to ``device=None``,
+    the card, and raise without one, as the port's other entry points do."""
+    cfg = smoke_config(ARCHS["qwen2.5-3b"])
+    tree = {"w": np.zeros(3, np.float32)}
+    if torch.cuda.is_available():
+        assert tf.init_cache(cfg, 1, 8)["k"].is_cuda
+        assert params_from_numpy(tree)["w"].is_cuda
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tf.init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_numpy(tree)
+    assert params_from_numpy(tree, device="cpu")["w"].device.type == "cpu"
