@@ -37,7 +37,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.latency_model import OpParams, theta_prob_inv
 from repro_torch.core.tiering import TPU_HOST
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, paged_kv_gather
 
 __all__ = ["PEAK_FLOPS", "PEAK_FLOPS_F32", "HBM_BW", "FLASH_SHAPES",
            "PAGED_SHAPES", "WKV_SHAPE", "flash_counts", "paged_counts",
@@ -339,6 +339,7 @@ def paged_decode_bench(seed: int = 0) -> list[dict]:
             return F.scaled_dot_product_attention(
                 q[:, :, None], kk, vv, enable_gqa=True)[:, :, 0]
 
+        plan = paged_kv_gather.launch_plan(q, kp, vp, bt, lengths)
         out = kernel()                              # warm-up
         ms = cuda_ms(kernel, REPS["paged"])
         comp = composition()                        # warm-up
@@ -353,6 +354,8 @@ def paged_decode_bench(seed: int = 0) -> list[dict]:
                    dict(shape=[B, Hq, Hkv, S, D_ATTN, PAGE],
                         reps=REPS["paged"], composition_ms=comp_ms,
                         max_abs_diff_vs_composition=diff,
+                        instance=plan["instance"],
+                        n_splits=plan["n_splits"],
                         store_bytes=2 * kp.numel() * kp.element_size()),
                    library=f"none: no single PyTorch call computes it;"
                            f"composition_us={comp_ms * 1e3:.4f}")

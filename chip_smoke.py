@@ -107,8 +107,11 @@ N_NEW = 32
 # of that range.
 LOGIT_TOL = 0.25
 # Ring depths (n_buffers) the paged kernel is timed at; the engine, like the
-# reference, runs it at 2.
-DEPTHS = (2, 4, 8)
+# reference, runs it at 2.  mma_bf16 holds its ring in whole 64-row rounds
+# (kernels.paged_kv_gather.ring_rounds), so at 16-token pages depths 2-4 are
+# one ring of 2 rounds, 8 is 3 and 16 is 5; each row records the ring of
+# each depth beside its time.
+DEPTHS = (2, 4, 8, 16)
 # Sequences of the kernel bench's paged shape held against the plain version
 # at a time: its gather, 4x head repeat and float32 copy take about 10 GB for
 # 8 sequences beside the 17.2 GB store (about 70 GB for all 128 at once).
@@ -121,6 +124,11 @@ PAGED_BENCH_CHUNK = 8
 # visible keys: 0.04 at S 4096, 0.015 at S 32768), so it would pass a fault
 # on the far KV tiles that is wrong by tens of percent.
 FLASH_ROW_TOL = cases.FLASH_ROW_TOL
+# The paged kernel against its plain version: beside PAGED_TOL, the largest
+# error of one (b, query head) row relative to the row, within PAGED_ROW_TOL
+# (1e-2; the reason is in tests/_torch_kernel_cases.py).  Typical outputs at
+# 32k keys are about 0.009, a third of the absolute 3e-2.
+PAGED_ROW_TOL = cases.PAGED_ROW_TOL
 
 # The serial chain of one scheduler step, as a model (assumed cycle counts,
 # not measured here): the least latency of the operations that the next
@@ -164,6 +172,8 @@ def reset_counts():
     for fn in KERNELS.values():
         fn.launches = 0
     fa.flash_attention.launches_by_instance = dict.fromkeys(fa.INSTANCES, 0)
+    pk.paged_decode_attention.launches_by_instance = dict.fromkeys(
+        pk.INSTANCES, 0)
 
 
 def counts():
@@ -205,48 +215,70 @@ def phase_build():
         _build.load(name)
     regs = [ln.strip() for ln in info["log"].splitlines()
             if "registers" in ln]
-    flash = flash_ptxas(info["log"])
-    hgmma = flash_hgmma()
+    flash = lib_ptxas(info["log"], "flash_attention", _flash_func)
+    for key, e in flash.items():
+        inst, D = key.split("/D")
+        e["smem_bytes"] = fa.smem_bytes(int(D), inst)
+    hgmma = sass_count("flash_attention", _flash_func, "HGMMA")
+    paged = lib_ptxas(info["log"], "paged_kv_gather", _paged_func)
+    hmma = sass_count("paged_kv_gather", _paged_func, "HMMA")
     emit("build", seconds=round(info["seconds"], 3), built=info["built"],
          nvcc_flags=info["flags"], dir=str(_build.build_dir().relative_to(ROOT)),
-         ptxas=regs[:12], flash_ptxas=flash, flash_hgmma=hgmma)
-    return flash, hgmma
+         ptxas=regs[:12], flash_ptxas=flash, flash_hgmma=hgmma,
+         paged_ptxas=paged, paged_hmma=hmma)
+    if hmma is not None and not all(
+            n > 0 for k, n in hmma.items() if k.startswith("mma_bf16")):
+        fail(f"a paged mma_bf16 kernel has no HMMA instruction: {hmma}")
+    if any("spills" in e and not e["spills"].startswith(
+            "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")
+           and k.startswith("mma_bf16") for k, e in paged.items()):
+        fail(f"a paged mma_bf16 kernel spills: {paged}")
+    return flash, hgmma, paged, hmma
 
 
-#: mangled kernel name -> (instance, head_dim) of the flash library
-FLASH_FUNCS = {**{f"_Z19flash_fwd_tc_kernelILi{D}E": ("wgmma_bf16", D)
+#: mangled kernel name -> key ("instance/D<head_dim>") of the flash library
+FLASH_FUNCS = {**{f"_Z19flash_fwd_tc_kernelILi{D}E": f"wgmma_bf16/D{D}"
                   for D in fa.HEAD_DIMS},
-               **{f"_Z16flash_fwd_kernelIfLi{D}E": ("scalar_f32", D)
+               **{f"_Z16flash_fwd_kernelIfLi{D}E": f"scalar_f32/D{D}"
                   for D in fa.HEAD_DIMS}}
+#: ... and of the paged library (scalar_f32 takes any head_dim)
+PAGED_FUNCS = {**{f"_Z22paged_decode_tc_kernelILi{D}E": f"mma_bf16/D{D}"
+                  for D in pk.TC_HEAD_DIMS},
+               "_Z19paged_decode_kernelP": "scalar_f32"}
 
 
-def _flash_func(name):
-    for prefix, key in FLASH_FUNCS.items():
-        if name.startswith(prefix):
-            return key
-    return None
+def _prefix_key(table):
+    def key(name):
+        for prefix, k in table.items():
+            if name.startswith(prefix):
+                return k
+        return None
+    return key
 
 
-def flash_ptxas(log):
-    """``-Xptxas -v`` of the flash library, per instance and head_dim: its
-    line (registers, barriers), spills, and the dynamic shared memory the
-    wrapper opts into (ptxas does not see it)."""
+_flash_func = _prefix_key(FLASH_FUNCS)
+_paged_func = _prefix_key(PAGED_FUNCS)
+
+
+def lib_ptxas(log, lib, func_key):
+    """``-Xptxas -v`` of one library, per kernel (``func_key`` maps a
+    mangled name to its key): its line (registers, barriers) and spills.
+    The dynamic shared memory the wrapper opts into is not in it (ptxas
+    does not see it)."""
     out, key = {}, None
-    in_flash = False
+    in_lib = False
     for ln in log.splitlines():
         if ln.startswith("["):
-            in_flash = ln.startswith("[flash_attention]")
-        if not in_flash:
+            in_lib = ln.startswith(f"[{lib}]")
+        if not in_lib:
             continue
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            key = _flash_func(m.group(1))
+            key = func_key(m.group(1))
             continue
         if key is None:
             continue
-        inst, D = key
-        e = out.setdefault(f"{inst}/D{D}", {
-            "smem_bytes": fa.smem_bytes(D, inst)})
+        e = out.setdefault(key, {})
         if "spill stores" in ln:
             e["spills"] = ln.strip()
         elif "Used" in ln and "registers" in ln:
@@ -254,15 +286,14 @@ def flash_ptxas(log):
     return out
 
 
-def flash_hgmma():
-    """Count of ``HGMMA`` instructions per flash kernel in the built
-    library's SASS (``cuobjdump -sass``), or None where the toolkit has no
+def sass_count(lib, func_key, opcode):
+    """Count of ``opcode`` instructions per kernel of one built library's
+    SASS (``cuobjdump -sass``), or None where the toolkit has no
     ``cuobjdump``."""
     tool = Path(_build._nvcc()).parent / "cuobjdump"
     if not tool.exists():
         return None
-    sass = subprocess.run([str(tool), "-sass",
-                           str(_build._lib_path("flash_attention"))],
+    sass = subprocess.run([str(tool), "-sass", str(_build._lib_path(lib))],
                           capture_output=True, text=True, timeout=300)
     if sass.returncode != 0:
         return None
@@ -270,11 +301,11 @@ def flash_hgmma():
     for ln in sass.stdout.splitlines():
         m = re.search(r"Function : (\w+)", ln)
         if m:
-            key = _flash_func(m.group(1))
+            key = func_key(m.group(1))
             if key:
-                counts[f"{key[0]}/D{key[1]}"] = 0
-        elif key and "HGMMA" in ln:
-            counts[f"{key[0]}/D{key[1]}"] += 1
+                counts[key] = 0
+        elif key and re.search(rf"\b{opcode}\b", ln):
+            counts[key] += 1
     return counts
 
 
@@ -654,42 +685,81 @@ def phase_timing(sc, art, sm_mhz):
 # -- paged decode attention and the serving path -------------------------------
 
 
+def _paged_check(checks, worst, name, args, dtype, **kw):
+    """One kernel launch held against the plain version on the same inputs;
+    appends a record naming the instance and the split count, fails on a
+    disagreement (``PAGED_TOL`` absolute, ``PAGED_ROW_TOL`` relative to each
+    row).  Returns the output."""
+    plan = pk.launch_plan(*args, **kw)
+    got = pk.paged_decode_attention(*args, **kw)
+    want = paged_decode_attention_ref(*args)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    row = cases.row_rel_err(got, want)
+    tol = cases.PAGED_TOL[dtype]
+    checks.append({"case": name, "dtype": dtype,
+                   "instance": plan["instance"],
+                   "n_splits": plan["n_splits"], "pps": plan["pps"],
+                   "n_buffers": kw.get("n_buffers", 2), "max_abs_err": err,
+                   "tol": tol, "max_row_rel_err": row,
+                   "row_tol": PAGED_ROW_TOL})
+    worst[dtype] = max(worst[dtype], err)
+    if not (bool(torch.isfinite(got).all()) and err <= tol
+            and row <= PAGED_ROW_TOL):
+        fail(f"paged_decode_attention ({plan['instance']}) disagrees with "
+             f"its plain version on {name}, {kw}: max abs err {err} (limit "
+             f"{tol}), row-relative {row} (limit {PAGED_ROW_TOL})")
+    return got
+
+
 def phase_paged_checks(seed):
-    """The paged attention kernel against its plain version on the card:
-    the reference's five ``PAGED_CASES`` x n_buffers 2, 3, 4, the length-1 /
-    exactly-full edge case, the serving shape and the kernel bench's shape,
-    each within the reference's own tolerance (3e-2 bfloat16, 5e-5
-    float32)."""
+    """The paged attention kernel against its plain version on the card,
+    both instances (every case in bfloat16 and in float32): the reference's
+    five ``PAGED_CASES``, the length-1 / exactly-full edge case and the
+    serving shape at n_buffers 2, 3, 4; ``PAGED_SPLIT_CASES`` at their
+    forced split counts, each run twice and required to repeat bit for bit;
+    tables holding page ids outside the store at the plan's, 1 and 3
+    splits; and the kernel bench's shape, each within the reference's own
+    tolerance (3e-2 bfloat16, 5e-5 float32) and within ``PAGED_ROW_TOL`` of
+    each (b, query head) row's norm."""
     checks, worst = [], {"bfloat16": 0.0, "float32": 0.0}
     named = [(f"paged-{i}", c) for i, c in enumerate(cases.PAGED_CASES)]
     named += [("edge-len1-full", cases.PAGED_EDGE),
               ("serve-shape", cases.PAGED_SERVE)]
     for name, case in named:
         c = cases.make_paged_case(case, seed=1)
-        args = cases.paged_tensors(c, DEV)
-        want = paged_decode_attention_ref(*args)
-        for nb in (2, 3, 4):
-            got = pk.paged_decode_attention(*args, n_buffers=nb)
-            torch.cuda.synchronize()
-            err = float((got.float() - want.float()).abs().max())
-            tol = cases.PAGED_TOL[c["dtype"]]
-            checks.append({"case": name, "n_buffers": nb,
-                           "dtype": c["dtype"], "max_abs_err": err,
-                           "tol": tol})
-            worst[c["dtype"]] = max(worst[c["dtype"]], err)
-            if not err <= tol:
-                fail(f"paged_decode_attention disagrees with its plain "
-                     f"version on {name}, n_buffers {nb}: max abs err {err} "
-                     f"> {tol}")
+        for dt in ("bfloat16", "float32"):
+            args = cases.paged_tensors(c, DEV, dt)
+            for nb in (2, 3, 4):
+                _paged_check(checks, worst, name, args, dt, n_buffers=nb)
+    for name, case in cases.PAGED_SPLIT_CASES.items():
+        c = cases.make_paged_case(case, seed=1)
+        for dt in ("bfloat16", "float32"):
+            args = cases.paged_tensors(c, DEV, dt)
+            kw = dict(n_splits=case["n_splits"])
+            first = _paged_check(checks, worst, name, args, dt, **kw)
+            second = _paged_check(checks, worst, name, args, dt, **kw)
+            if not torch.equal(first, second):
+                fail(f"paged_decode_attention on {name} ({dt}) does not "
+                     f"repeat bit for bit")
+            checks[-1]["repeats_bit_for_bit"] = True
+    for i, case in enumerate(cases.PAGED_CASES):
+        c = cases.with_bad_page_ids(cases.make_paged_case(case, seed=6))
+        for dt in ("bfloat16", "float32"):
+            args = cases.paged_tensors(c, DEV, dt)
+            for n_splits in (None, 1, 3):
+                _paged_check(checks, worst, f"out-of-store-ids-{i}", args,
+                             dt, n_splits=n_splits)
     # the kernel bench's shape (a full 17.2 GB store, inputs drawn as the
     # bench draws them): the whole batch through the kernel, every sequence
     # against the plain version, PAGED_BENCH_CHUNK sequences a call
     pb = cases.PAGED_BENCH
     q, kp, vp, bt, ln = kbench.paged_inputs(pb["B"], pb["Hq"], pb["Hkv"],
                                             pb["S"], DEV, seed)
+    plan = pk.launch_plan(q, kp, vp, bt, ln)
     got = pk.paged_decode_attention(q, kp, vp, bt, ln)
     finite = bool(torch.isfinite(got).all())
-    err, plain_ms = 0.0, 0.0
+    err, row, plain_ms = 0.0, 0.0, 0.0
     for i in range(0, pb["B"], PAGED_BENCH_CHUNK):
         j = i + PAGED_BENCH_CHUNK
         start = torch.cuda.Event(enable_timing=True)
@@ -700,21 +770,29 @@ def phase_paged_checks(seed):
         torch.cuda.synchronize()
         plain_ms += start.elapsed_time(end)
         err = max(err, float((got[i:j].float() - want.float()).abs().max()))
+        row = max(row, cases.row_rel_err(got[i:j], want))
         del want
     del q, kp, vp, bt, ln, got
     torch.cuda.empty_cache()
     checks.append({"case": "bench-shape", "n_buffers": 2,
-                   "dtype": pb["dtype"], "max_abs_err": err,
+                   "dtype": pb["dtype"], "instance": plan["instance"],
+                   "n_splits": plan["n_splits"], "max_abs_err": err,
                    "tol": cases.PAGED_TOL[pb["dtype"]],
+                   "max_row_rel_err": row, "row_tol": PAGED_ROW_TOL,
                    "sequences_checked": pb["B"],
                    "plain_chunk": PAGED_BENCH_CHUNK})
     worst["bfloat16"] = max(worst["bfloat16"], err)
-    if not (finite and err <= cases.PAGED_TOL[pb["dtype"]]):
-        fail(f"paged_decode_attention at the bench shape: max abs err {err} "
-             f"over all {pb['B']} sequences (finite: {finite})")
+    if not (finite and err <= cases.PAGED_TOL[pb["dtype"]]
+            and row <= PAGED_ROW_TOL):
+        fail(f"paged_decode_attention at the bench shape: max abs err {err}, "
+             f"row-relative {row} (limit {PAGED_ROW_TOL}) over all "
+             f"{pb['B']} sequences (finite: {finite})")
+    worst_row = {dt: max(c["max_row_rel_err"] for c in checks
+                         if c["dtype"] == dt) for dt in worst}
     emit("paged_checks", n_checks=len(checks), max_abs_err_by_dtype=worst,
-         checks=checks, plain_ms_bench=plain_ms)
-    return worst, plain_ms
+         max_row_rel_err_by_dtype=worst_row, checks=checks,
+         plain_ms_bench=plain_ms)
+    return worst, worst_row, plain_ms
 
 
 def phase_serve_path(seed):
@@ -755,6 +833,7 @@ def phase_serve_path(seed):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = counts()
+    paged_by_instance = dict(pk.paged_decode_attention.launches_by_instance)
     peak = torch.cuda.max_memory_allocated()
     st = {k: eng.stats[k] - before[k] for k in eng.stats}
 
@@ -772,6 +851,11 @@ def phase_serve_path(seed):
         fail(f"paged_decode_attention launched "
              f"{launches['paged_decode_attention']} times for "
              f"{st['decode_steps']} decode steps of {cfg.n_layers} layers")
+    # the model is bfloat16: every paged launch is the tensor-core instance
+    if paged_by_instance != {"scalar_f32": 0, "mma_bf16":
+                             launches["paged_decode_attention"]}:
+        fail(f"paged_decode_attention launches in the serving window by "
+             f"instance: {paged_by_instance}, not all mma_bf16")
     if launches["fused_steps"] or launches["token_clock_update"]:
         fail(f"the serving path launched a scheduler kernel: {launches}")
     prof = profile_decode(eng, rng)
@@ -791,11 +875,12 @@ def phase_serve_path(seed):
          decode_tokens_per_s=st["decode_tokens"] / st["decode_s"],
          decode_ms_per_step=1e3 * st["decode_s"] / st["decode_steps"],
          wall_s=wall_s, launches=launches,
+         paged_launches_by_instance=paged_by_instance,
          launches_per_decode_step=(launches["paged_decode_attention"]
                                    / st["decode_steps"]),
          peak_device_bytes=int(peak), pages_released=True,
          decode_profile=prof)
-    return eng, reqs, logs, picks, launches
+    return eng, reqs, logs, picks, launches, paged_by_instance
 
 
 def profile_decode(eng, rng, steps=3):
@@ -937,50 +1022,122 @@ def paged_composition(q, k_pages, v_pages, bt, lengths):
         q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)[:, :, 0]
 
 
+#: GPU cycles the card sleeps before each separately timed launch, so that
+#: the host has queued the call (the wrapper's checks and allocations)
+#: before its start event is reached: the events then time the device's
+#: work alone (about 0.2 ms at 1.5-2 GHz)
+CUSHION_CYCLES = 300_000
+#: bytes written between launches to push the page store out of the 50 MB L2
+L2_FLUSH_BYTES = 128 << 20
+
+
+def device_ms(fn, reps, flush=None):
+    """Mean device milliseconds of one call of ``fn``, each call timed by its
+    own events behind a ``CUSHION_CYCLES`` sleep (and, given ``flush``, a
+    write of that buffer first).  A loop of back-to-back calls measures the
+    host when a call is shorter than the wrapper's host work."""
+    pairs = []
+    for _ in range(reps):
+        if flush is not None:
+            flush.fill_(1.0)
+        torch.cuda._sleep(CUSHION_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+
 def phase_paged_timing():
-    """The kernel, its plain version and the two-call composition by CUDA
-    events after a warm-up, at the serving shape and at a 32k context; the
-    kernel also at ring depths ``DEPTHS``."""
+    """The kernel, its plain version and the two-call composition at the
+    serving shape (bf16 and, for ``scalar_f32``, float32) and at a 32k
+    context: the kernel's device time per call (``device_ms``; at the
+    serving shape also with L2 flushed between calls), the mean of a loop
+    of back-to-back calls, and the kernel at ring depths ``DEPTHS`` (each
+    depth's ring in ``ring_by_n_buffers``; a depth whose ring does not fit
+    in shared memory is listed in ``n_buffers_refused``).  Every launch
+    timed is first held to ``PAGED_TOL`` and ``PAGED_ROW_TOL``."""
     rows = []
-    for name, case, reps in (("serve", cases.PAGED_SERVE, 50),
-                             ("long-32k", cases.PAGED_LONG, 10)):
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device=DEV)
+    for name, case, dt, reps in (
+            ("serve", cases.PAGED_SERVE, "bfloat16", 50),
+            ("serve-f32", cases.PAGED_SERVE, "float32", 20),
+            ("long-32k", cases.PAGED_LONG, "bfloat16", 10)):
         c = cases.make_paged_case(case, seed=5)
+        c["dtype"] = dt
         args = cases.paged_tensors(c, DEV)
+        plan = pk.launch_plan(*args)
         want = paged_decode_attention_ref(*args)
-        got = pk.paged_decode_attention(*args)
         comp = paged_composition(*args)
         torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
         comp_err = float((comp.float() - want.float()).abs().max())
-        tol = cases.PAGED_TOL[c["dtype"]]
-        if not err <= tol:
+        tol = cases.PAGED_TOL[dt]
+        # the prefetch depth P of the paper's model: pages in flight ahead
+        ring_by_depth, refused, err, row = {}, {}, 0.0, 0.0
+        for nb in DEPTHS:
+            try:
+                ring_by_depth[nb] = pk.launch_plan(*args, n_buffers=nb)["ring"]
+            except ValueError as e:
+                refused[nb] = str(e)
+                continue
+            got = pk.paged_decode_attention(*args, n_buffers=nb)
+            torch.cuda.synchronize()
+            err = max(err, float((got.float() - want.float()).abs().max()))
+            row = max(row, cases.row_rel_err(got, want))
+        if not (err <= tol and row <= PAGED_ROW_TOL):
             fail(f"paged_decode_attention at the {name} shape: max abs err "
-                 f"{err} > {tol}")
-        ms = cuda_ms(lambda: pk.paged_decode_attention(*args), reps)
-        # the prefetch depth P of the paper's model: the ring's slots
-        ms_by_depth = {nb: cuda_ms(lambda nb=nb: pk.paged_decode_attention(
-            *args, n_buffers=nb), reps) for nb in DEPTHS}
+                 f"{err} (limit {tol}), row-relative {row} (limit "
+                 f"{PAGED_ROW_TOL})")
+        device_ms(lambda: pk.paged_decode_attention(*args), 3)   # warm-up
+        ms = device_ms(lambda: pk.paged_decode_attention(*args), reps)
+        ms_loop = cuda_ms(lambda: pk.paged_decode_attention(*args), reps)
+        ms_by_depth = {nb: device_ms(lambda nb=nb: pk.paged_decode_attention(
+            *args, n_buffers=nb), reps) for nb in ring_by_depth}
+        ms_flushed = (device_ms(lambda: pk.paged_decode_attention(*args),
+                                reps, flush) if name == "serve" else None)
         plain_ms = cuda_ms(lambda: paged_decode_attention_ref(*args),
                            max(2, reps // 5))
-        comp_ms = cuda_ms(lambda: paged_composition(*args), reps)
+        comp_ms = device_ms(lambda: paged_composition(*args), reps)
+        comp_ms_loop = cuda_ms(lambda: paged_composition(*args), reps)
         bound_ms, bound_by, nbytes, flops = paged_bound(c)
         B, Hq, D = c["q"].shape
         rows.append({"shape": name, "B": B, "Hq": Hq,
                      "Hkv": c["k_pages"].shape[2], "D": D,
                      "page": c["k_pages"].shape[1],
                      "ppseq": c["block_tables"].shape[1],
-                     "dtype": c["dtype"], "tokens": int(c["lengths"].sum()),
+                     "dtype": dt, "instance": plan["instance"],
+                     "n_splits": plan["n_splits"], "pps": plan["pps"],
+                     "smem_bytes": plan["smem"],
+                     "workspace_bytes": plan["workspace_bytes"],
+                     "tokens": int(c["lengths"].sum()),
                      "max_len": int(c["lengths"].max()), "ms": ms,
+                     "ms_loop": ms_loop, "ms_l2_flushed": ms_flushed,
                      "ms_by_n_buffers": ms_by_depth,
+                     "ring_by_n_buffers": ring_by_depth,
+                     "n_buffers_refused": refused,
                      "plain_ms": plain_ms, "composition_ms": comp_ms,
+                     "composition_ms_loop": comp_ms_loop,
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "bytes": nbytes, "flops": flops,
                      "roofline_share": bound_ms / ms,
                      "achieved_bytes_per_s": nbytes / (ms * 1e-3),
-                     "max_abs_err": err, "composition_max_abs_err": comp_err})
+                     "max_abs_err": err, "max_row_rel_err": row,
+                     "composition_max_abs_err": comp_err})
         del args, want, got, comp
         torch.cuda.empty_cache()
+    del flush
+    torch.cuda.empty_cache()
     emit("paged_timing", rows=rows,
+         timing="ms: device time per call by its own events behind a "
+                f"{CUSHION_CYCLES}-cycle sleep, after 3 such calls "
+                "untimed; ms_loop: mean of back-to-"
+                "back calls (host-bound when a call is short); "
+                f"ms_l2_flushed: {L2_FLUSH_BYTES >> 20} MiB written before "
+                "each call (composition_ms and composition_ms_loop: the "
+                "same two measures of the composition)",
          composition="k_pages[block_tables] gather + "
                      "F.scaled_dot_product_attention(enable_gqa=True, "
                      "attn_mask=length mask): two calls, timed together")
@@ -1143,6 +1300,7 @@ def phase_kernels_bench(seed):
     wall_s = time.perf_counter() - t0
     launches = counts()
     flash_by_instance = dict(fa.flash_attention.launches_by_instance)
+    paged_by_instance = dict(pk.paged_decode_attention.launches_by_instance)
     for name in ("flash_attention", "paged_decode_attention", "wkv6"):
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the kernels_bench path")
@@ -1151,6 +1309,10 @@ def phase_kernels_bench(seed):
                              "wgmma_bf16": launches["flash_attention"]}:
         fail(f"flash_attention launches in the kernels_bench window by "
              f"instance: {flash_by_instance}, not all wgmma_bf16")
+    if paged_by_instance != {"scalar_f32": 0, "mma_bf16":
+                             launches["paged_decode_attention"]}:
+        fail(f"paged_decode_attention launches in the kernels_bench window "
+             f"by instance: {paged_by_instance}, not all mma_bf16")
     if launches["fused_steps"] or launches["token_clock_update"]:
         fail(f"the kernels_bench path launched a scheduler kernel: "
              f"{launches}")
@@ -1160,7 +1322,8 @@ def phase_kernels_bench(seed):
                     math.isfinite(row["ms"]) and row["ms"] > 0):
                 fail(f"kernels_bench row {row['name']}: time {row['ms']}")
     emit("kernels_bench", wall_s=wall_s, launches=launches,
-         flash_launches_by_instance=flash_by_instance, rows=rows,
+         flash_launches_by_instance=flash_by_instance,
+         paged_launches_by_instance=paged_by_instance, rows=rows,
          peak_flops=kbench.PEAK_FLOPS, hbm_bytes_per_s=kbench.HBM_BW)
     return rows, launches, flash_by_instance
 
@@ -1175,7 +1338,7 @@ def main():
     t_all = time.perf_counter()
     torch.cuda.set_device(0)
     card, sm_mhz = phase_card()
-    flash_ptx, flash_hgmma_count = phase_build()
+    flash_ptx, flash_hgmma_count, paged_ptx, paged_hmma = phase_build()
 
     sc_small = scenario(2, (8,), n_keys=2000, n_wl_ops=600)
     store, wl = Experiment(sc_small).build()
@@ -1185,7 +1348,8 @@ def main():
          fused_steps_max_abs_err=err_fused,
          tolerance="every plane bit-equal; histogram: equal, or unit mass "
                    "moved between adjacent bins, same row total")
-    paged_err, paged_bench_plain_ms = phase_paged_checks(args.seed)
+    paged_err, paged_row, paged_bench_plain_ms = phase_paged_checks(
+        args.seed)
     flash_err, flash_twin, flash_plain_long_ms = phase_flash_checks(args.seed)
     wkv_err, wkv_plain_ms = phase_wkv_checks(args.seed)
 
@@ -1216,37 +1380,55 @@ def main():
         shape={"G": widest["G"], "T": widest["T_max"], "K": widest["K"]},
         tolerance="bit-equal (histogram: adjacent-bin rule)")
 
-    eng, reqs, logs, picks, serve_launches = phase_serve_path(args.seed)
+    eng, reqs, logs, picks, serve_launches, serve_paged_by_instance = \
+        phase_serve_path(args.seed)
     phase_serve_dense_check(eng, reqs, logs, picks)
     del eng, logs
     torch.cuda.empty_cache()
-    serve_row, long_row = phase_paged_timing()
+    serve_row, serve_f32_row, long_row = phase_paged_timing()
     paged = dict(
         name="paged_kv_gather.paged_decode_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/paged_kv_gather.cu",
         replaces="src/repro/kernels/paged_kv_gather.py:124",
         launches=serve_launches["paged_decode_attention"], path="serve_path",
+        launches_by_instance=serve_paged_by_instance,
         max_abs_err=max(paged_err.values()),
-        max_abs_err_by_dtype=paged_err, ms=serve_row["ms"],
+        max_abs_err_by_dtype=paged_err, max_row_rel_err_by_dtype=paged_row,
+        ms=serve_row["ms"],
         plain_ms=serve_row["plain_ms"], bound_ms=serve_row["bound_ms"],
         bound_by=serve_row["bound_by"], library_ms=None,
         composition_ms=serve_row["composition_ms"],
+        composition_ms_loop=serve_row["composition_ms_loop"],
         composition="two calls, no single PyTorch call computes it: "
                     "k_pages[block_tables] + scaled_dot_product_attention",
+        instance=serve_row["instance"], n_splits=serve_row["n_splits"],
+        ms_l2_flushed=serve_row["ms_l2_flushed"],
+        ms_loop=serve_row["ms_loop"],
+        ms_by_n_buffers=serve_row["ms_by_n_buffers"],
+        ring_by_n_buffers=serve_row["ring_by_n_buffers"],
         shape={k: serve_row[k] for k in ("B", "Hq", "Hkv", "D", "page",
                                          "ppseq", "dtype", "tokens")},
         long_context={k: long_row[k] for k in (
-            "B", "ppseq", "tokens", "ms", "plain_ms", "composition_ms",
-            "bound_ms", "bound_by")},
-        tolerance="3e-2 bfloat16, 5e-5 float32 (absolute)")
+            "B", "ppseq", "tokens", "instance", "n_splits", "ms", "ms_loop",
+            "ms_by_n_buffers", "ring_by_n_buffers", "plain_ms",
+            "composition_ms", "composition_ms_loop", "bound_ms", "bound_by", "roofline_share",
+            "max_row_rel_err")},
+        scalar_f32_serve={k: serve_f32_row[k] for k in (
+            "instance", "n_splits", "ms", "ms_by_n_buffers",
+            "ring_by_n_buffers", "n_buffers_refused", "plain_ms",
+            "composition_ms", "bound_ms", "bound_by")},
+        ptxas=paged_ptx, hmma=paged_hmma,
+        tolerance=f"3e-2 bfloat16, 5e-5 float32 (absolute), and "
+                  f"{PAGED_ROW_TOL} relative to each (b, query head) row")
     torch.cuda.empty_cache()
     bench, bench_launches, flash_by_instance = phase_kernels_bench(args.seed)
     paged["launches_kernels_bench"] = bench_launches["paged_decode_attention"]
     pb = bench["paged_decode_bench"][0]
     paged["kernels_bench"] = {k: pb[k] for k in (
         "shape", "ms", "composition_ms", "bound_ms", "bound_by", "bytes",
-        "max_abs_diff_vs_composition")}
+        "max_abs_diff_vs_composition", "n_splits", "instance")}
     paged["kernels_bench"]["plain_ms"] = paged_bench_plain_ms
+    paged["kernels_bench"]["roofline_share"] = pb["bound_ms"] / pb["ms"]
 
     f_rows = bench["flash_attention_bench"]
     B, Hq, Hkv, S, D = f_rows[0]["shape"]

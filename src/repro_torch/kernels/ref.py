@@ -52,8 +52,12 @@ def paged_decode_attention_ref(
     Hkv = k_pages.shape[2]
     rep = Hq // Hkv
     ppseq = block_tables.shape[1]
-    # gather each sequence's pages into a contiguous (B, ppseq*page, Hkv, D)
+    # a page id is taken as the reference's gather takes an index: a
+    # negative id wraps once, then the id is clamped into the store
+    n_pages = k_pages.shape[0]
     bt = block_tables.long()
+    bt = torch.where(bt < 0, bt + n_pages, bt).clamp(0, n_pages - 1)
+    # gather each sequence's pages into a contiguous (B, ppseq*page, Hkv, D)
     k_seq = k_pages[bt].reshape(B, ppseq * page, Hkv, D)
     v_seq = v_pages[bt].reshape(B, ppseq * page, Hkv, D)
     kk = torch.repeat_interleave(k_seq, rep, dim=2)

@@ -16,8 +16,11 @@ row total", because its bin index goes through ``log``.
 Paged decode attention: the reference's ``PAGED_CASES`` and its length-1 /
 exactly-full edge case (``tests/test_kernels.py``), the serving shape of
 qwen2.5-3b and one long-context shape, with inputs drawn by numpy from a seed
-(:func:`make_paged_case`).  Contract: within ``PAGED_TOL`` of the plain
-version (the reference's own ``_tol``), absolute, per dtype.
+(:func:`make_paged_case`); ``PAGED_SPLIT_CASES``, which force split counts
+and edge lengths on the kernel; and block tables holding page ids outside the
+store (:func:`with_bad_page_ids`).  Contract: within ``PAGED_TOL`` of the
+plain version (the reference's own ``_tol``), absolute, per dtype, and on
+the card also within ``PAGED_ROW_TOL`` of each row's norm.
 
 Flash attention and wkv6: the reference's ``FLASH_CASES`` and ``WKV_CASES``
 with inputs drawn by numpy from a seed (:func:`make_flash_case`,
@@ -39,7 +42,8 @@ from repro_torch.kernels.token_clock import token_clock_update_ref
 __all__ = ["FLAG_SETS", "make_case", "step_args", "states_agree",
            "hist_equal_or_adjacent", "run_plain", "run_fused",
            "PAGED_CASES", "PAGED_EDGE", "PAGED_SERVE", "PAGED_LONG",
-           "PAGED_TOL", "MODEL_TOL", "make_paged_case", "paged_tensors",
+           "PAGED_TOL", "PAGED_ROW_TOL", "MODEL_TOL", "make_paged_case",
+           "paged_tensors", "PAGED_SPLIT_CASES", "with_bad_page_ids",
            "tol", "FLASH_CASES", "FLASH_LONG", "FLASH_BENCH", "FLASH_TC_CASES",
            "FLASH_ROW_TOL", "row_rel_err", "make_flash_case",
            "flash_tensors", "WKV_CASES", "WKV_BENCH", "make_wkv_case",
@@ -239,6 +243,44 @@ PAGED_LONG = dict(B=8, Hq=16, Hkv=2, D=128, page=16, ppseq=2048,
 
 PAGED_TOL = {"bfloat16": 3e-2, "float32": 5e-5}
 
+#: paged outputs against the plain version: the largest error of one
+#: (b, query head) row relative to the row, ``||got - want|| / ||want||``
+#: over its D values (:func:`row_rel_err`), beside ``PAGED_TOL``.  The
+#: bfloat16 instance rounds P to bfloat16 for ``P V`` (at most 2^-8 of each
+#: weight) and both sides round the output to bfloat16 (at most 2^-8 of a
+#: value), so a correct row is off by well under 2^-7 = 0.0078.  The
+#: absolute 3e-2 is about the size of a typical output over many keys
+#: (|out| ~ sqrt(e/n) for n keys: 0.009 at 32768), so alone it would pass an
+#: output at half its value or a split left out of the merge.
+PAGED_ROW_TOL = 1e-2
+
+#: name -> a case with fixed lengths (tables drawn from the seed, padded with
+#: page 0 past each sequence's pages, as ``batch_views`` pads them) and the
+#: split count forced on the kernel (None: the plan's choice).  Between them:
+#: 1, 2 and an odd 3 splits, more splits than pages, lengths 0 and 1, lengths
+#: ending mid-page and mid-round, pages of 8 to 64 tokens, D 32 / 64 / 128,
+#: and rep 12 (starcoder2-3b: 24 / 2 heads) and 16 (llama3-405b: 128 / 8).
+PAGED_SPLIT_CASES = {
+    "split1": dict(B=3, Hq=8, Hkv=2, D=128, page=16, ppseq=12, n_pages=48,
+                   lengths=(192, 100, 7), n_splits=1),
+    "split2": dict(B=3, Hq=8, Hkv=2, D=128, page=16, ppseq=12, n_pages=48,
+                   lengths=(192, 100, 7), n_splits=2),
+    "split3-odd": dict(B=3, Hq=8, Hkv=2, D=128, page=16, ppseq=12,
+                       n_pages=48, lengths=(192, 100, 7), n_splits=3),
+    "splits-past-pages": dict(B=2, Hq=4, Hkv=1, D=64, page=32, ppseq=4,
+                              n_pages=16, lengths=(128, 33), n_splits=7),
+    "len0-len1": dict(B=4, Hq=4, Hkv=2, D=64, page=8, ppseq=10, n_pages=48,
+                      lengths=(0, 1, 37, 80), n_splits=3),
+    "len0-alone": dict(B=2, Hq=4, Hkv=2, D=64, page=8, ppseq=10, n_pages=24,
+                       lengths=(0, 0), n_splits=None),
+    "rep12-starcoder2": dict(B=2, Hq=24, Hkv=2, D=128, page=16, ppseq=40,
+                             n_pages=96, lengths=(611, 45), n_splits=None),
+    "rep16-llama3-405b": dict(B=2, Hq=128, Hkv=8, D=128, page=64, ppseq=6,
+                              n_pages=16, lengths=(383, 64), n_splits=2),
+    "d32-smoke": dict(B=2, Hq=4, Hkv=2, D=32, page=8, ppseq=16, n_pages=40,
+                      lengths=(128, 59), n_splits=None),
+}
+
 #: bfloat16 model outputs (logits, K/V) of the port against another run of
 #: the same computation (the reference, or the dense path): every layer
 #: rounds q/k/v, the attention output, the residual stream and the MLP to
@@ -263,10 +305,20 @@ def make_paged_case(case, seed: int = 1) -> dict:
     else:
         B, Hq, Hkv, D, page, ppseq = (case[k] for k in
                                       ("B", "Hq", "Hkv", "D", "page", "ppseq"))
-        P, dtype, n_buf = case["n_pages"], case["dtype"], 2
+        P, n_buf = case["n_pages"], case.get("n_buffers", 2)
+        dtype = case.get("dtype", "bfloat16")
         if case.get("tables") == "arange":
             bt = np.arange(B * ppseq).reshape(B, ppseq)
             lengths = list(case["lengths"])
+        elif "lengths" in case:
+            lengths = list(case["lengths"])
+            bt = np.zeros((B, ppseq), np.int64)
+            perm = rng.permutation(P)
+            used = 0
+            for i, n in enumerate(lengths):
+                k = min(-(-int(n) // page), ppseq)
+                bt[i, :k] = perm[used:used + k]
+                used += k
         else:
             # ragged lengths, each sequence's pages drawn without repeats;
             # table entries past a sequence's pages are 0, as batch_views
@@ -290,10 +342,28 @@ def make_paged_case(case, seed: int = 1) -> dict:
         lengths=np.asarray(lengths, np.int32))
 
 
-def paged_tensors(c: dict, device="cpu"):
+def with_bad_page_ids(c: dict) -> dict:
+    """``c`` with page ids outside its store of P pages in every table row:
+    ``P + 2``, ``-1`` and ``-(P + 3)`` in turn at the first, middle and last
+    of the sequence's own pages and at every entry past them.  Both plain
+    versions read an id as the reference's gather reads an index (a
+    negative id wraps once, then the id is clamped): P - 1, P - 1 and 0."""
+    bt = c["block_tables"].copy()
+    P, page = c["k_pages"].shape[:2]
+    bad = (P + 2, -1, -(P + 3))
+    for i, n in enumerate(c["lengths"]):
+        k = min(-(-int(n) // page), bt.shape[1])
+        cols = sorted({0, k // 2, k - 1}) if k else []
+        for j, col in enumerate([*cols, *range(k, bt.shape[1])]):
+            bt[i, col] = bad[j % 3]
+    return {**c, "block_tables": bt}
+
+
+def paged_tensors(c: dict, device="cpu", dtype=None):
     """``(q, k_pages, v_pages, block_tables, lengths)`` of a case as tensors
-    on ``device``, the float arrays cast to the case's dtype."""
-    dt = getattr(torch, c["dtype"])
+    on ``device``, the float arrays cast to ``dtype`` (default: the
+    case's)."""
+    dt = getattr(torch, dtype or c["dtype"])
     f = [torch.from_numpy(c[n]).to(device=device, dtype=dt)
          for n in ("q", "k_pages", "v_pages")]
     i = [torch.from_numpy(c[n]).to(device) for n in ("block_tables",

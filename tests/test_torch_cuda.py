@@ -125,6 +125,70 @@ def test_paged_kernel_matches_plain_version(cuda, name, n_buffers):
     assert err <= cases.PAGED_TOL[c["dtype"]], err
 
 
+def _paged_run(args, dtype, **kw):
+    """One launch, checked against the plain version (absolute and relative
+    to each row); returns the output and checks that the instance of
+    ``dtype`` counted it."""
+    inst = pk.instance_for(getattr(torch, dtype))
+    before = dict(pk.paged_decode_attention.launches_by_instance)
+    got = pk.paged_decode_attention(*args, **kw)
+    want = paged_decode_attention_ref(*args)
+    torch.cuda.synchronize()
+    after = pk.paged_decode_attention.launches_by_instance
+    assert after == {**before, inst: before[inst] + 1}
+    err = float((got.float() - want.float()).abs().max())
+    assert bool(torch.isfinite(got).all())
+    assert err <= cases.PAGED_TOL[dtype], err
+    row = cases.row_rel_err(got, want)
+    assert row <= cases.PAGED_ROW_TOL, row
+    return got
+
+
+@pytest.mark.parametrize("n_buffers", [2, 3, 4])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("name", sorted(PAGED))
+def test_paged_both_instances_match_plain_version(cuda, name, dtype,
+                                                  n_buffers):
+    """Every case in both dtypes: ``mma_bf16`` and ``scalar_f32``."""
+    c = cases.make_paged_case(PAGED[name], seed=1)
+    _paged_run(cases.paged_tensors(c, cuda, dtype), dtype,
+               n_buffers=n_buffers)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("name", sorted(cases.PAGED_SPLIT_CASES))
+def test_paged_forced_splits_match_and_repeat(cuda, name, dtype):
+    """Forced split counts (1, 2, 3, more than pages), lengths 0 and 1,
+    mid-page ends, rep 12 and 16, D 32: within tolerance, and bit for bit
+    the same on a second run (the merge's order is fixed)."""
+    case = cases.PAGED_SPLIT_CASES[name]
+    c = cases.make_paged_case(case, seed=1)
+    args = cases.paged_tensors(c, cuda, dtype)
+    kw = dict(n_splits=case["n_splits"])
+    plan = pk.launch_plan(*args, **kw)
+    if case["n_splits"] is not None:
+        assert plan["n_splits"] == case["n_splits"]
+    first = _paged_run(args, dtype, **kw)
+    second = _paged_run(args, dtype, **kw)
+    assert torch.equal(first, second)
+    for b, n in enumerate(c["lengths"]):
+        if n == 0:
+            assert not bool(first[b].any())
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("i", range(len(cases.PAGED_CASES)))
+def test_paged_kernel_reads_out_of_store_ids_as_plain_version(cuda, i,
+                                                              dtype):
+    """Page ids ``P + 2``, ``-1``, ``-(P + 3)`` inside and past each
+    sequence's pages: wrapped once, then clamped, as the plain version."""
+    c = cases.with_bad_page_ids(cases.make_paged_case(cases.PAGED_CASES[i],
+                                                      seed=6))
+    for n_splits in (None, 1, 3):
+        _paged_run(cases.paged_tensors(c, cuda, dtype), dtype,
+                   n_splits=n_splits)
+
+
 def test_paged_kernel_refuses_what_it_does_not_take(cuda):
     c = cases.make_paged_case(cases.PAGED_CASES[0], seed=2)
     q, k, v, bt, ln = cases.paged_tensors(c, cuda)
