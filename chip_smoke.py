@@ -68,7 +68,8 @@ from repro_torch.models import transformer as tf
 from repro_torch.serve.engine import Request, ServeEngine
 
 from benchmarks import kernels_bench_torch as kbench
-from benchmarks.kernels_bench_torch import cuda_ms
+from benchmarks import sched_split_torch as ssplit
+from benchmarks.kernels_bench_torch import card_state, cuda_ms
 
 import _torch_kernel_cases as cases
 
@@ -129,22 +130,6 @@ FLASH_ROW_TOL = cases.FLASH_ROW_TOL
 # (1e-2; the reason is in tests/_torch_kernel_cases.py).  Typical outputs at
 # 32k keys are about 0.009, a third of the absolute 3e-2.
 PAGED_ROW_TOL = cases.PAGED_ROW_TOL
-
-# The serial chain of one scheduler step, as a model (assumed cycle counts,
-# not measured here): the least latency of the operations that the next
-# step's clock depends on -- the ring pop (key select, then 5 warp-shuffle
-# rounds of a 64-bit min), the popped thread's row from shared memory, the
-# span unpacking, one gather of its suboperation from the trace table (an L2
-# hit) and the float64 operations from there to ``now + T_sw``.
-CHAIN = {"shuffle_rounds": 5, "cycles_per_shuffle_round": 25,
-         "shared_loads": 1, "cycles_per_shared_load": 30,
-         "l2_gathers": 1, "cycles_per_l2_gather": 200,
-         "f64_ops": 11, "cycles_per_f64_op": 8}
-CHAIN_CYCLES = sum(CHAIN[n] * CHAIN[c] for n, c in (
-    ("shuffle_rounds", "cycles_per_shuffle_round"),
-    ("shared_loads", "cycles_per_shared_load"),
-    ("l2_gathers", "cycles_per_l2_gather"),
-    ("f64_ops", "cycles_per_f64_op")))
 
 OUT_DIR = ROOT / "chiprun_out"
 PHASES = []
@@ -222,10 +207,14 @@ def phase_build():
     hgmma = sass_count("flash_attention", _flash_func, "HGMMA")
     paged = lib_ptxas(info["log"], "paged_kv_gather", _paged_func)
     hmma = sass_count("paged_kv_gather", _paged_func, "HMMA")
+    sched = lib_ptxas(info["log"], "sched_step", _sched_func)
+    sched_sass = {op: sass_count("sched_step", _sched_func, op)
+                  for op in ("REDUX", "SHFL")}
     emit("build", seconds=round(info["seconds"], 3), built=info["built"],
          nvcc_flags=info["flags"], dir=str(_build.build_dir().relative_to(ROOT)),
          ptxas=regs[:12], flash_ptxas=flash, flash_hgmma=hgmma,
-         paged_ptxas=paged, paged_hmma=hmma)
+         paged_ptxas=paged, paged_hmma=hmma, sched_ptxas=sched,
+         sched_sass=sched_sass)
     if hmma is not None and not all(
             n > 0 for k, n in hmma.items() if k.startswith("mma_bf16")):
         fail(f"a paged mma_bf16 kernel has no HMMA instruction: {hmma}")
@@ -233,7 +222,7 @@ def phase_build():
             "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")
            and k.startswith("mma_bf16") for k, e in paged.items()):
         fail(f"a paged mma_bf16 kernel spills: {paged}")
-    return flash, hgmma, paged, hmma
+    return flash, hgmma, paged, hmma, sched, sched_sass
 
 
 #: mangled kernel name -> key ("instance/D<head_dim>") of the flash library
@@ -258,6 +247,14 @@ def _prefix_key(table):
 
 _flash_func = _prefix_key(FLASH_FUNCS)
 _paged_func = _prefix_key(PAGED_FUNCS)
+
+
+def _sched_func(name):
+    """The scheduler library's two kernels: the normal and the profiling
+    instance of ``sched_step_kernel<PROF>``."""
+    if "sched_step_kernel" not in name:
+        return None
+    return "profiling" if "ILb1E" in name else "normal"
 
 
 def lib_ptxas(log, lib, func_key):
@@ -440,6 +437,15 @@ def phase_main_path():
     if not (np.isfinite(thr).all() and (thr > 0).all()
             and thr.shape == (N_LATS, len(CANDS))):
         fail("main path produced non-finite or misshapen throughputs")
+    # one launch steps every live cohort: at most one launch a chunk of the
+    # longest cohort (a launch per cohort would sum the cohorts' chunks)
+    max_launches = grid.steps // rt._RNG_CHUNK
+    if launches["fused_steps"] > max_launches:
+        fail(f"the main path launched fused_steps {launches['fused_steps']} "
+             f"times for a grid of {max_launches} chunks: one launch must "
+             f"step every live cohort")
+    # kernel ms and the host's share of one sweep (after the counted run)
+    sweep = ssplit.grid(DEV)
     emit("main_path", scenario=sc.display_name, cells=int(thr.size),
          n_latencies=N_LATS, thread_candidates=list(CANDS), n_ops=sc.n_ops,
          trace_ops=int(tr.n_ops), trace_subops=int(tr.n_subops),
@@ -454,7 +460,12 @@ def phase_main_path():
          cell_steps_per_s=grid.cell_steps_run / grid_wall_s,
          peak_device_bytes=int(peak), all_cells_counted_n_ops=True,
          best_threads_first_last=[art.rows[0].n_threads,
-                                  art.rows[-1].n_threads])
+                                  art.rows[-1].n_threads],
+         max_launches=max_launches,
+         sweep={k: sweep[k] for k in (
+             "launches", "grid_wall_s", "run_wall_s", "kernel_ms",
+             "device_busy_ms", "kernel_ms_per_launch", "host_share_of_grid",
+             "kernel_cell_steps_per_s", "host_split_s")})
     return sc, art, launches
 
 
@@ -563,123 +574,166 @@ def phase_agreement(sc, art):
                     "p50_tol": 0.10, "p99_tol": 0.25})
 
 
-def gathered_rows(c, ci_before, ci_after):
-    """``(kd_rows, se_rows)``: the distinct rows of the trace tables that one
-    launch can have read, from the cells' cursors before and after it.  A
-    cell reads ``se`` at every cursor position it passes, and ``kd`` for the
-    suboperations of the ops its threads held at the start or fetched."""
-    n = c.n_trace
-    se = c.se[:n].cpu().numpy()
+def gathered_rows(cohorts, ci_before, ci_after):
+    """``(kd_rows, se_rows)``: the distinct rows of the trace tables (which
+    every cohort shares) that one launch can have read, from the cells'
+    cursors before and after it.  A cell reads ``se`` at every cursor
+    position it passes, and ``kd`` for the suboperations of the ops its
+    threads held at the start or fetched."""
+    c0 = cohorts[0]
+    n = c0.n_trace
+    se = c0.se[:n].cpu().numpy()
     ops_len = (se[:, 1] - se[:, 0]).astype(np.int64)
-    held = (c.nthr_g.cpu().numpy().astype(np.int64)
-            * c.substep.flags["n_cores"])
     kd_ops = np.zeros(n, bool)
     se_ops = np.zeros(n, bool)
-    for g in range(c.G):
-        cur = int(ci_before[g, 0])
-        adv = int(ci_after[g, 2]) - int(ci_before[g, 2])
-        se_ops[np.arange(cur, cur + adv + 1) % n] = True
-        kd_ops[np.arange(cur - held[g], cur + adv + 1) % n] = True
+    for c, before, after in zip(cohorts, ci_before, ci_after):
+        held = (c.nthr_g.cpu().numpy().astype(np.int64)
+                * c.substep.flags["n_cores"])
+        for g in range(c.G):
+            cur = int(before[g, 0])
+            adv = int(after[g, 2]) - int(before[g, 2])
+            se_ops[np.arange(cur, cur + adv + 1) % n] = True
+            kd_ops[np.arange(cur - held[g], cur + adv + 1) % n] = True
     return int(ops_len[kd_ops].sum()), int(se_ops.sum())
 
 
-def phase_timing(sc, art, sm_mhz):
-    """Per-launch time of ``fused_steps`` at the main path's shapes (one
-    cohort = 128 cells; K = 1024 steps), the plain version's time for the
-    same K steps from the same state, and the kernel's bounds."""
-    tr = art.trace_result.trace
-    cohorts = rt.plan_grid(sc.sim_config(), tr, sc.latencies_sec(),
-                           sc.thread_candidates, n_ops=sc.n_ops, device=DEV)
+def plan_main(sc, art):
+    """The main path's cohorts from their initial states, and four chunks
+    of their uniforms side by side (what one grouped launch takes)."""
+    cohorts = rt.plan_grid(sc.sim_config(), art.trace_result.trace,
+                           sc.latencies_sec(), sc.thread_candidates,
+                           n_ops=sc.n_ops, device=DEV)
+    return cohorts, [rt.cohort_uniforms(cohorts, ck) for ck in range(4)]
+
+
+def phase_sched_split(cohorts, us):
+    """The measured split of a scheduler step at the main path's shape: the
+    profiling instance of the grouped launch, ``SPLIT_LAUNCHES`` launches
+    from the initial states, per cohort the SM cycles of each phase a step
+    (``ssplit.PHASES``), the idle skips a step, and the chain floor -- the
+    phases the next pop waits for, times K, for the slowest cohort.  The
+    profiling instance must leave every plane as the normal one does."""
+    prof, same = ssplit.measure_split(cohorts, us)
+    if not same:
+        fail("the profiling instance of fused_steps changed a state plane")
+    state = card_state()
+    mhz = state["sm_mhz"]
+    K = us[0].shape[0]
+    rows = ssplit.split_rows(prof, [c.G for c in cohorts],
+                             ssplit.SPLIT_LAUNCHES * K, mhz)
+    if not all(r["total_cycles_per_step"] > 0
+               and min(r["cycles_per_step"].values()) >= 0 for r in rows):
+        fail(f"the profiling instance returned a malformed split: {rows}")
+    chain = max(r["chain_cycles_per_step"] for r in rows)
+    floor_ms = ssplit.chain_floor_ms(chain, K, mhz)
+    emit("sched_split", phases=list(ssplit.PHASES),
+         chain_phases=list(ssplit.CHAIN_PHASES), K=K,
+         launches=ssplit.SPLIT_LAUNCHES, card_state=state,
+         cohorts=[dict(T_max=c.T_max, **r) for c, r in zip(cohorts, rows)],
+         chain_cycles_per_step=chain, chain_floor_ms=floor_ms,
+         bit_equal_to_normal_instance=True,
+         note="clock64 stamps at phase boundaries (a stamp does not wait "
+              "for a load in flight: a load's latency shows where its "
+              "value is first used); cycles converted at the SM clock read "
+              "after the launches; the floor is K steps of the chain "
+              "phases of the slowest cohort")
+    return floor_ms, rows
+
+
+def phase_timing(cohorts, us, floor_ms):
+    """Per-launch time of ``fused_steps`` at the main path's shape: the
+    grouped launch of all four cohorts (512 cells, K = 1024 steps) and each
+    cohort alone, in turns; one grouped chunk from the initial states held
+    bit-equal to the plain version for every cohort, whose time for the
+    same K steps is the plain time; and the grouped launch's bounds."""
     reps = 8
-    rows = []
-    for c in cohorts:
-        tail = c.fused_tail()
-        us = [c.uniforms(ck) for ck in range(4)]
-        state0 = tuple(p.clone() for p in c.state)
-        warmed = sk.fused_steps(c.substep, state0, us[0], *tail)  # warm-up
-        holder = {"s": tuple(p.clone() for p in warmed), "i": 0}
+    ms = ssplit.time_launches(cohorts, us, reps=reps, rounds=2)
+    K = us[0].shape[0]
+    # the same launches again, untimed, for the table rows they read
+    states = ssplit.copy_states([c.state for c in cohorts])
+    ssplit.launch_group(cohorts, states, us[0])
+    kd_rows = se_rows = 0
+    for i in range(reps):
+        before = [s[1].cpu().numpy() for s in states]
+        ssplit.launch_group(cohorts, states, us[i % len(us)])
+        kd_n, se_n = gathered_rows(cohorts, before,
+                                   [s[1].cpu().numpy() for s in states])
+        kd_rows += kd_n
+        se_rows += se_n
+    kd_rows, se_rows = kd_rows / reps, se_rows / reps
+    G = sum(c.G for c in cohorts)
+    sbytes = sum(state_bytes(c.state) for c in cohorts)
+    # bytes one launch must move: state in and out, the uniform block,
+    # the per-cell vectors (L_mem f64, nthr i32, warm i32), and the table
+    # rows it gathers (two f64 a row), each counted once
+    nbytes = (2 * sbytes + us[0].numel() * 8 + G * 16
+              + (kd_rows + se_rows) * 16)
+    P = cohorts[0].state[5].shape[-1]
+    # f64 operations of one step of one cell: two ops per ring slot and
+    # per window slot (key select + min), ~64 scalar ops
+    flops = sum(K * c.G * (2 * c.state[2].shape[1] + 2 * P + 64)
+                for c in cohorts)
+    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ops = flops / F64_FLOP_PER_S * 1e3
+    group_ms = float(np.mean(ms["group"]))
 
-        def launch():
-            holder["i"] += 1
-            holder["s"] = sk.fused_steps(
-                c.substep, holder["s"], us[holder["i"] % 4], *tail,
-                inplace=True)
-
-        ms = cuda_ms(launch, reps)
-        # the same launches again, untimed, for the table rows they read
-        holder = {"s": warmed, "i": 0}
-        kd_rows = se_rows = 0
-        for _ in range(reps):
-            before = holder["s"][1].cpu().numpy()
-            launch()
-            kd_n, se_n = gathered_rows(c, before,
-                                       holder["s"][1].cpu().numpy())
-            kd_rows += kd_n
-            se_rows += se_n
-        kd_rows, se_rows = kd_rows / reps, se_rows / reps
-        K = us[0].shape[0]
-        # bytes one launch must move: state in and out, the uniform block,
-        # the per-cell vectors (L_mem f64, nthr i32, warm i32), and the
-        # table rows it gathers (two f64 a row), each counted once
-        nbytes = (2 * state_bytes(c.state) + us[0].numel() * 8
-                  + c.G * 16 + (kd_rows + se_rows) * 16)
-        T = c.state[2].shape[1]
-        P = c.state[5].shape[-1]
-        # f64 operations of one step of one cell: two ops per ring slot and
-        # per window slot (key select + min), ~64 scalar ops
-        flops = K * c.G * (2 * T + 2 * P + 64)
-        b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        b_ops = flops / F64_FLOP_PER_S * 1e3
-        rows.append({"T_max": c.T_max, "G": c.G, "K": K, "n_u": c.n_u,
-                     "ms": ms, "us_per_step": ms * 1e3 / K,
-                     "bound_bytes_ms": b_bytes, "bound_ops_ms": b_ops,
-                     "serial_chain_ms": K * CHAIN_CYCLES / (sm_mhz * 1e3),
-                     "state_bytes": state_bytes(c.state),
-                     "u_block_bytes": us[0].numel() * 8,
-                     "kd_rows_gathered": kd_rows, "se_rows_gathered": se_rows,
-                     "kd_rows_total": int(c.kd.shape[0]),
-                     "se_rows_total": int(c.se.shape[0])})
-    # plain version: the widest cohort, the same K steps from the init
-    # state, granting through the plain token clock (no CUDA kernel in it)
-    c = cohorts[-1]
-    u0 = c.uniforms(0)
-    sub = sk.make_substep(**c.substep.flags,
-                          token_clock=tc.token_clock_update_ref)
-
-    def plain_k():
+    # one grouped chunk against the plain version, cohort by cohort (the
+    # plain version grants through the plain token clock: no CUDA kernel)
+    kern = ssplit.copy_states([c.state for c in cohorts])
+    ssplit.launch_group(cohorts, kern, us[0])
+    before = tc.token_clock_update.launches
+    plain_ms, err, off = [], 0.0, 0
+    for c, s_kern in zip(cohorts, kern):
+        sub = sk.make_substep(**c.substep.flags,
+                              token_clock=tc.token_clock_update_ref)
+        u0 = us[0][:, :, off:off + c.G]
+        off += c.G
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
         s = c.state
-        for k in range(u0.shape[0]):
+        start.record()
+        for k in range(K):
             s = sub(s, u0[k], c.kd, c.se, c.arr, c.nthr_g, c.n_trace,
                     c.L_mem_g, c.warm_g, c.n_ops, c.dyn)
-        return s
-
-    before = tc.token_clock_update.launches
-    s_plain = plain_k()                          # warm-up + comparison
-    plain_ms = cuda_ms(plain_k, 1)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms.append(start.elapsed_time(end))
+        ok, e, bad = cases.states_agree(s, s_kern, False)
+        err = max(err, e)
+        if not ok:
+            fail(f"fused_steps (grouped launch of {len(cohorts)} cohorts) "
+                 f"disagrees with the plain version at the main path's "
+                 f"shape on the T={c.T_max} cohort after {K} steps: plane "
+                 f"{bad}, max abs err {e}")
     if tc.token_clock_update.launches != before:
         fail("the plain version used for the comparison launched the "
              "token-clock kernel")
-    s_kern = sk.fused_steps(c.substep, c.state, u0, *c.fused_tail())
-    torch.cuda.synchronize()
-    ok, err, bad = cases.states_agree(s_plain, s_kern, False)
-    if not ok:
-        fail(f"fused_steps disagrees with the plain version at the main "
-             f"path's shape after {u0.shape[0]} steps: plane {bad}, max "
-             f"abs err {err}")
-    steps_per_s = sum(r["G"] * r["K"] for r in rows) / sum(
-        r["ms"] * 1e-3 for r in rows)
-    emit("timing", fused_steps=rows, plain_ms_widest_cohort=plain_ms,
-         kernel_cell_steps_per_s=steps_per_s,
-         serial_chain_model=dict(CHAIN, cycles_per_step=CHAIN_CYCLES,
-                                 sm_clock_mhz=sm_mhz,
-                                 note="assumed latencies, not measured"),
+    rows = [{"T_max": c.T_max, "G": c.G,
+             "NS": sk.slot_count(c.state[2].shape[1]), "K": K,
+             "n_u": c.n_u, "ms_alone": t,
+             "us_per_step_alone": [x * 1e3 / K for x in t],
+             "plain_ms": p, "state_bytes": state_bytes(c.state)}
+            for c, t, p in zip(cohorts, ms["alone"], plain_ms)]
+    group = {"cohorts": len(cohorts), "G": G, "K": K, "ms": ms["group"],
+             "us_per_step": group_ms * 1e3 / K,
+             "bound_bytes_ms": b_bytes, "bound_ops_ms": b_ops,
+             "serial_chain_ms": floor_ms, "state_bytes": sbytes,
+             "u_block_bytes": us[0].numel() * 8,
+             "kd_rows_gathered": kd_rows, "se_rows_gathered": se_rows,
+             "kd_rows_total": int(cohorts[0].kd.shape[0]),
+             "se_rows_total": int(cohorts[0].se.shape[0]),
+             "plain_ms": sum(plain_ms),
+             "kernel_cell_steps_per_s": G * K / (group_ms * 1e-3),
+             "bit_equal_to_plain_all_cohorts": True}
+    emit("timing", fused_steps_group=group, fused_steps_alone=rows,
+         timing="CUDA events over 8 launches a turn, two turns: group, each "
+                "cohort alone, group, each cohort alone",
          note="the bytes and operations bounds are both about a "
               "microsecond; the binding limit is neither but the serial "
-              "chain: K dependent steps per cell (serial_chain_ms is a "
-              "modelled floor of it, us_per_step what a step takes)")
-    widest = rows[-1]
-    return widest, plain_ms, err, (c.G, c.state[6].shape[1]
-                                   if len(c.state) > 6 else 1)
+              "chain: K dependent steps per cell (serial_chain_ms is its "
+              "floor from the measured split, us_per_step what a step "
+              "takes)")
+    return group, err
 
 
 # -- paged decode attention and the serving path -------------------------------
@@ -1338,7 +1392,8 @@ def main():
     t_all = time.perf_counter()
     torch.cuda.set_device(0)
     card, sm_mhz = phase_card()
-    flash_ptx, flash_hgmma_count, paged_ptx, paged_hmma = phase_build()
+    (flash_ptx, flash_hgmma_count, paged_ptx, paged_hmma, sched_ptx,
+     sched_sass) = phase_build()
 
     sc_small = scenario(2, (8,), n_keys=2000, n_wl_ops=600)
     store, wl = Experiment(sc_small).build()
@@ -1356,8 +1411,12 @@ def main():
     sc, art, launches = phase_main_path()
     plain_launches = phase_plain_step_path(art)
     phase_agreement(sc, art)
-    widest, plain_ms, err_main, (G, S) = phase_timing(sc, art, sm_mhz)
-    tok = phase_token_clock(G, S)
+    cohorts, us = plan_main(sc, art)
+    floor_ms, split = phase_sched_split(cohorts, us)
+    group, err_main = phase_timing(cohorts, us, floor_ms)
+    widest = cohorts[-1]
+    tok = phase_token_clock(widest.G, widest.state[6].shape[1]
+                            if len(widest.state) > 6 else 1)
     tok["launches"] = plain_launches["token_clock_update"]
     tok["path"] = "plain_step_path"
     tok["launches_main_path"] = launches["token_clock_update"]
@@ -1366,18 +1425,23 @@ def main():
         source="src/repro_torch/kernels/csrc/sched_step.cu",
         replaces="src/repro/kernels/sched_step.py:622",
         launches=launches["fused_steps"], path="main_path",
-        max_abs_err=max(err_fused, err_main), ms=widest["ms"],
-        plain_ms=plain_ms,
-        bound_ms=max(widest["bound_bytes_ms"], widest["bound_ops_ms"]),
-        bound_by=("bytes" if widest["bound_bytes_ms"]
-                  >= widest["bound_ops_ms"] else "operations"),
-        bound_bytes_ms=widest["bound_bytes_ms"],
-        bound_ops_ms=widest["bound_ops_ms"],
-        serial_chain_ms=widest["serial_chain_ms"],
+        max_abs_err=max(err_fused, err_main),
+        ms=float(np.mean(group["ms"])), ms_turns=group["ms"],
+        us_per_step=group["us_per_step"], plain_ms=group["plain_ms"],
+        bound_ms=max(group["bound_bytes_ms"], group["bound_ops_ms"]),
+        bound_by=("bytes" if group["bound_bytes_ms"]
+                  >= group["bound_ops_ms"] else "operations"),
+        bound_bytes_ms=group["bound_bytes_ms"],
+        bound_ops_ms=group["bound_ops_ms"],
+        serial_chain_ms=floor_ms,
+        serial_chain="measured: K steps of the chain phases of the "
+                     "slowest cohort (sched_split phase)",
         binding="the serial chain (latency of K dependent steps), which "
                 "neither the bytes nor the operations bound describes",
         library_ms=None,
-        shape={"G": widest["G"], "T": widest["T_max"], "K": widest["K"]},
+        shape={"cohorts": group["cohorts"], "G": group["G"],
+               "T": [c.state[2].shape[1] for c in cohorts], "K": group["K"]},
+        ptxas=sched_ptx, sass=sched_sass,
         tolerance="bit-equal (histogram: adjacent-bin rule)")
 
     eng, reqs, logs, picks, serve_launches, serve_paged_by_instance = \

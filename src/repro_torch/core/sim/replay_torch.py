@@ -13,9 +13,9 @@ The recurrence
 One step executes exactly one suboperation of one thread in every grid cell.
 The step body lives in :mod:`repro_torch.kernels.sched_step` (see that
 module for the state layout): on a CUDA device the hand-written kernel
-advances all cells by a whole block of steps per launch
-(:func:`~repro_torch.kernels.sched_step.fused_steps`); on the CPU the plain
-PyTorch body runs step by step.
+advances every cell of every cohort by a whole block of steps per launch
+(:func:`~repro_torch.kernels.sched_step.fused_steps_group`); on the CPU the
+plain PyTorch body runs step by step.
 
 Cells that complete their measured ops latch their measurement (the counters
 stop; the simulation harmlessly idles on) while the slower cells drain; the
@@ -66,7 +66,7 @@ from .config import SimConfig, SimResult
 __all__ = ["TraceArrays", "GridResult", "sweep_grid", "lower_trace",
            "SplitMixDraws", "init_state", "state_from_numpy",
            "state_to_numpy", "resolve_device", "Cohort", "plan_grid",
-           "grid_tol", "GRID_TOL", "GRID_REF_OPS"]
+           "cohort_uniforms", "grid_tol", "GRID_TOL", "GRID_REF_OPS"]
 
 _STEP_BUCKET = 4096     # step bounds round up to this
 _PAD_SENTINEL = CPU     # padded suboperations are inert plain-CPU entries
@@ -359,6 +359,7 @@ class SplitMixDraws:
     def __init__(self, seed: int, device="cpu"):
         self.seed = int(seed)
         self.device = torch.device(device)
+        self._chunk_keys = (None, None)     # (stream ids, their chunk keys)
 
     def _cell_keys(self, stream_ids) -> torch.Tensor:
         ids = torch.as_tensor(np.asarray(stream_ids, dtype=np.int64),
@@ -377,7 +378,14 @@ class SplitMixDraws:
         return u_cursor, u_thread
 
     def chunk(self, stream_ids, ck: int, n_u: int):
-        keys = _mix(self._cell_keys(stream_ids) + 1)            # (G,)
+        # The chunk keys of the last stream ids stay on the device: the chunk
+        # loop asks for the same cells chunk after chunk, and uploading the
+        # ids again would wait for the launch in flight.
+        ids = np.asarray(stream_ids, dtype=np.int64)
+        last, keys = self._chunk_keys
+        if last is None or not np.array_equal(last, ids):
+            keys = _mix(self._cell_keys(ids) + 1)               # (G,)
+            self._chunk_keys = (ids.copy(), keys)
         step = torch.arange(ck * _RNG_CHUNK, (ck + 1) * _RNG_CHUNK,
                             device=self.device)
         ctr = step[:, None] * 4 + torch.arange(n_u, device=self.device)
@@ -511,8 +519,8 @@ def _as_f64(x, dev) -> torch.Tensor:
 @dataclass
 class Cohort:
     """One cohort of grid cells, ready to step: every tensor
-    :func:`~repro_torch.kernels.sched_step.fused_steps` takes, the initial
-    ``state``, and where the cells' results go (``cols``)."""
+    :func:`~repro_torch.kernels.sched_step.fused_steps_group` takes, the
+    initial ``state``, and where the cells' results go (``cols``)."""
 
     cols: list                 # candidate columns of the grid in this cohort
     T_max: int                 # thread slots per core
@@ -532,19 +540,6 @@ class Cohort:
     n_ops: int
     dyn: tuple
     draws: object
-
-    def uniforms(self, ck: int) -> torch.Tensor:
-        """The ``(_RNG_CHUNK, n_u, G)`` uniform block of chunk ``ck``."""
-        dev = self.L_mem_g.device
-        if not self.n_u:
-            return torch.zeros(_RNG_CHUNK, 0, self.G, dtype=torch.float64,
-                               device=dev)
-        return _as_f64(self.draws.chunk(self.stream_ids, ck, self.n_u), dev)
-
-    def fused_tail(self) -> tuple:
-        """``fused_steps``'s arguments after ``u_block``."""
-        return (self.kd, self.se, self.arr, self.n_trace, self.L_mem_g,
-                self.nthr_g, self.warm_g, self.n_ops, self.dyn)
 
 
 def plan_grid(
@@ -687,49 +682,96 @@ def plan_grid(
     return out
 
 
-def _run_cohort(c: Cohort, *, substeps: int, use_kernel: bool,
-                early_exit: bool) -> dict:
-    """Replay one cohort to its step bound (or its early exit) and return
-    the result planes as numpy arrays."""
-    state, sub, tail = c.state, c.substep, c.fused_tail()
-    has_lat = sub.flags["has_lat"]
-    n_chunks = c.steps // _RNG_CHUNK
+def cohort_uniforms(cohorts: Sequence[Cohort], ck: int) -> torch.Tensor:
+    """The ``(_RNG_CHUNK, n_u, sum G)`` uniform block of chunk ``ck`` for
+    ``cohorts`` side by side: one ``draws.chunk`` call over their stream ids
+    concatenated.  Every draw is a function of its cell's stream id alone,
+    so each cohort's columns are bit for bit the block drawn for that cohort
+    alone.
+    """
+    c0 = cohorts[0]
+    dev = c0.L_mem_g.device
+    G = sum(c.G for c in cohorts)
+    if not c0.n_u:
+        return torch.zeros(_RNG_CHUNK, 0, G, dtype=torch.float64, device=dev)
+    ids = np.concatenate([c.stream_ids for c in cohorts])
+    return _as_f64(c0.draws.chunk(ids, ck, c0.n_u), dev)
+
+
+def _run_cohorts(cohorts: Sequence[Cohort], *, substeps: int,
+                 use_kernel: bool, early_exit: bool) -> list[dict]:
+    """Replay every cohort to its step bound (or its early exit) in one
+    chunk loop and return each cohort's result planes as numpy arrays.
+
+    Each chunk draws the live cohorts' uniforms in one call and, on the
+    card, steps them all in one launch per ``substeps`` steps (in groups of
+    ``MAX_COHORTS`` when more are live); the plain step runs cohort by
+    cohort.  A cohort leaves the loop after the chunk that reaches its own
+    step bound, or -- tested for all live cohorts in one host read every
+    ``_EXIT_CHECK_CHUNKS`` chunks -- once all its cells have latched:
+    exactly where it would stop if it ran alone."""
+    sub = cohorts[0].substep
+    states = [c.state for c in cohorts]
+    n_chunks = [c.steps // _RNG_CHUNK for c in cohorts]
+    chunks_run = [0] * len(cohorts)
+    live = [i for i, n in enumerate(n_chunks) if n > 0]
     ck = 0
-    while ck < n_chunks:
-        us = c.uniforms(ck)
-        if use_kernel:
-            # In place: the kernel overwrites the state planes, which saves
-            # a copy of the whole state per launch.
-            for b in range(0, _RNG_CHUNK, substeps):
-                state = sk.fused_steps(sub, state, us[b:b + substeps],
-                                       *tail, inplace=True)
-        else:
-            for k in range(_RNG_CHUNK):
-                state = sub(state, us[k], c.kd, c.se, c.arr, c.nthr_g,
-                            c.n_trace, c.L_mem_g, c.warm_g, c.n_ops, c.dyn)
+    while live:
+        for g0 in range(0, len(live), sk.MAX_COHORTS):
+            ix = live[g0:g0 + sk.MAX_COHORTS]
+            cs = [cohorts[i] for i in ix]
+            us = cohort_uniforms(cs, ck)
+            if use_kernel:
+                # In place: the kernel overwrites the state planes, which
+                # saves a copy of the whole state per launch.
+                parts = [(states[i], c.L_mem_g, c.nthr_g, c.warm_g)
+                         for i, c in zip(ix, cs)]
+                c0 = cs[0]
+                for b in range(0, _RNG_CHUNK, substeps):
+                    sk.fused_steps_group(sub, parts, us[b:b + substeps],
+                                         c0.kd, c0.se, c0.arr, c0.n_trace,
+                                         c0.n_ops, c0.dyn)
+                continue
+            off = 0
+            for i, c in zip(ix, cs):
+                state = states[i]
+                for k in range(_RNG_CHUNK):
+                    state = sub(state, us[k, :, off:off + c.G], c.kd, c.se,
+                                c.arr, c.nthr_g, c.n_trace, c.L_mem_g,
+                                c.warm_g, c.n_ops, c.dyn)
+                states[i] = state
+                off += c.G
         ck += 1
+        for i in live:
+            chunks_run[i] = ck
+        live = [i for i in live if ck < n_chunks[i]]
         # Finished cells are inert (counters and t_start/t_end are latched),
         # so cutting the tail chunks cannot change any result.
-        if (early_exit and ck < n_chunks and ck % _EXIT_CHECK_CHUNKS == 0
-                and bool((state[1][:, 3] >= c.n_ops).all())):
-            break
+        if early_exit and live and ck % _EXIT_CHECK_CHUNKS == 0:
+            latched = torch.stack([
+                (states[i][1][:, 3] >= cohorts[i].n_ops).all()
+                for i in live]).tolist()
+            live = [i for i, done in zip(live, latched) if not done]
 
-    cf = state[0].cpu().numpy()
-    ci = state[1].cpu().numpy()
-    elapsed = np.maximum(cf[:, 4] - cf[:, 3], 1e-12)
-    out = dict(
-        throughput=np.float64(c.n_ops) / elapsed,
-        time=elapsed,
-        mem_stall_total=cf[:, 5],
-        mem_accesses=ci[:, 4],
-        counted=ci[:, 3],
-        steps_run=ck * _RNG_CHUNK,
-    )
-    if has_lat:
-        out["lat_hist"] = state[-2].cpu().numpy()
-        out["lat_max"] = state[-1].cpu().numpy()
-        out["missed"] = ci[:, 6]
-    return out
+    outs = []
+    for c, state, n in zip(cohorts, states, chunks_run):
+        cf = state[0].cpu().numpy()
+        ci = state[1].cpu().numpy()
+        elapsed = np.maximum(cf[:, 4] - cf[:, 3], 1e-12)
+        out = dict(
+            throughput=np.float64(c.n_ops) / elapsed,
+            time=elapsed,
+            mem_stall_total=cf[:, 5],
+            mem_accesses=ci[:, 4],
+            counted=ci[:, 3],
+            steps_run=n * _RNG_CHUNK,
+        )
+        if sub.flags["has_lat"]:
+            out["lat_hist"] = state[-2].cpu().numpy()
+            out["lat_max"] = state[-1].cpu().numpy()
+            out["missed"] = ci[:, 6]
+        outs.append(out)
+    return outs
 
 
 def sweep_grid(
@@ -821,11 +863,11 @@ def sweep_grid(
     max_steps = 0
     steps_bound_cells = 0
     steps_run_cells = 0
-    for c in cohorts:
+    outs = _run_cohorts(cohorts, substeps=substeps, use_kernel=use_kernel,
+                        early_exit=early_exit)
+    for c, out in zip(cohorts, outs):
         cols, steps, G, nc = c.cols, c.steps, c.G, len(c.cols)
         max_steps = max(max_steps, steps)
-        out = _run_cohort(c, substeps=substeps, use_kernel=use_kernel,
-                          early_exit=early_exit)
         if not np.all(out["counted"] >= n_ops):
             short = int(out["counted"].min())
             raise RuntimeError(

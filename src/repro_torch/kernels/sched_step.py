@@ -9,10 +9,12 @@ is that step, two ways:
   * :func:`make_substep` builds the plain PyTorch step body (about 150 tensor
     operations over ``(G, ...)`` planes); the CPU path and the on-card
     comparison use it;
-  * :func:`fused_steps` advances the state by K substeps.  On CUDA tensors it
-    launches the hand-written kernel ``csrc/sched_step.cu`` (one launch per
-    K steps, the state read once and written once); on CPU tensors it loops
-    the plain body K times.
+  * :func:`fused_steps_group` advances every cohort of a grid (up to
+    :data:`MAX_COHORTS` groups of cells, each with its own thread-slot count)
+    by K substeps.  On CUDA tensors it launches the hand-written kernel
+    ``csrc/sched_step.cu`` once for all of them (the state read once and
+    written once); on CPU tensors it loops the plain body K times over each
+    cohort.  :func:`fused_steps` is the same for one cohort.
 
 Kernel note
 -----------
@@ -25,12 +27,17 @@ one serial recurrence, so the kernel is bound neither by bytes nor by
 arithmetic throughput but by the *dependent-operation latency of one step
 times K*: one warp owns one cell, keeps the thread planes in registers
 (lane ``l`` owns slots ``l, l+32, ...``) and the per-row planes in shared
-memory, pops the ring with a warp-shuffle ``min`` over int64 bit patterns,
-and runs all K steps of a launch without touching device memory for state.
-The static flags are run-time arguments (uniform over a launch, so branches
-never diverge).  Built with ``-fmad=false``, the kernel is bit-identical to
-:func:`make_substep` except for the one transcendental (``log`` in the
-histogram bin), which may move a sojourn on a bin edge by one bin.
+memory, pops the ring with a warp ``min`` over 64-bit key patterns (two
+32-bit ``redux.sync``), and runs all K steps of a launch without touching
+device memory for state.  One launch steps every cohort, so the cohorts'
+serial chains overlap on the card instead of adding up; each block finds its
+cohort from the prefix sum of the cohorts' cell counts.  The static flags
+are run-time arguments (uniform over a launch, so branches never diverge).
+A profiling instance (``prof=`` of :func:`fused_steps_group`) times the
+phases of a step (:data:`PROF_PHASES`) with the SM's cycle counter.  Built
+with ``-fmad=false``, the kernel is bit-identical to :func:`make_substep`
+except for the one transcendental (``log`` in the histogram bin), which may
+move a sojourn on a bin edge by one bin.
 
 Tag-encoded minima
 ------------------
@@ -97,7 +104,9 @@ from .token_clock import MAX_DEVICES, token_clock_update
 __all__ = [
     "TAG_BITS", "SPAN_SHIFT", "BIG", "EPOCH", "tag_encode", "tag_tid",
     "tag_value", "pack_span", "unpack_span", "make_substep", "fused_steps",
-    "DYN_NAMES", "MAX_THREAD_SLOTS", "MAX_SHARED_BYTES",
+    "fused_steps_group", "group_args", "slot_count", "DYN_NAMES",
+    "MAX_THREAD_SLOTS", "MAX_SHARED_BYTES", "MAX_COHORTS", "PROF_PHASES",
+    "PROF_COLUMNS",
 ]
 
 TAG_BITS = 8                       # index bits packed into the mantissa
@@ -512,21 +521,44 @@ def make_substep(*, n_u, n_ssd, has_eps, has_rho, has_jitter, has_rio,
 
 # -- the CUDA launch ----------------------------------------------------------
 
+#: Cohorts one launch steps at most: the kernel takes their argument blocks by
+#: value in its parameter space (``SCHED_MAX_COHORTS`` in ``sched_step.cu``).
+MAX_COHORTS = 8
+
+#: Phases of one step that the profiling instance times, in program order.
+PROF_PHASES = ("pop", "row_kd", "op_completion_se", "clock_grant",
+               "prefetch_issue", "write")
+#: Columns of the profiling instance's ``(cells, len(PROF_COLUMNS))`` int64
+#: buffer: each phase's SM cycles summed over the launch's steps, the idle
+#: skips taken, and the cycles of the whole launch (state load and store
+#: included).  A launch adds to the buffer, so it sums over launches.
+PROF_COLUMNS = PROF_PHASES + ("idle_skips", "launch_cycles")
+
 _FLAG_FIELDS = ("has_eps", "has_rho", "has_jitter", "has_rio", "has_bio",
                 "has_bmem", "has_lock", "has_arr", "has_lat", "has_deadline",
                 "has_degrade")
-_PTR_FIELDS = ("cf", "ci", "stamp", "wake", "pft", "pf_slots", "cores",
-               "io_tok", "io_bw", "hist", "latmax", "u", "kd", "se", "arr",
-               "L_mem_g", "nthr_g", "warm_g")
-_INT_FIELDS = ("G", "T", "P", "S", "C", "W", "NCI", "n_u", "K", "n_trace",
-               "n_arr") + _FLAG_FIELDS
+_COHORT_PTR_FIELDS = ("cf", "ci", "stamp", "wake", "pft", "pf_slots",
+                      "cores", "io_tok", "io_bw", "hist", "latmax",
+                      "L_mem_g", "nthr_g", "warm_g")
+_COHORT_INT_FIELDS = ("G", "T", "NS", "block0")
+_PTR_FIELDS = ("u", "kd", "se", "arr", "prof")
+_INT_FIELDS = ("n_cohorts", "n_blocks", "P", "S", "C", "W", "NCI", "n_u",
+               "K", "n_trace", "n_arr") + _FLAG_FIELDS
 _DBL_FIELDS = ("n_ops",) + DYN_NAMES + ("hist_lo", "hist_inv_ln_ratio")
+
+
+class _SchedCohort(ctypes.Structure):
+    """Mirror of ``struct SchedCohort`` in ``csrc/sched_step.cu`` (same field
+    order; pointers first, then ints): one cohort of a grouped launch."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in _COHORT_PTR_FIELDS]
+                + [(n, ctypes.c_int) for n in _COHORT_INT_FIELDS])
 
 
 class _SchedArgs(ctypes.Structure):
     """Mirror of ``struct SchedArgs`` in ``csrc/sched_step.cu`` (same field
-    order; pointers first, then ints, then doubles)."""
-    _fields_ = ([(n, ctypes.c_void_p) for n in _PTR_FIELDS]
+    order): the cohort blocks, then the shared pointers, ints, doubles."""
+    _fields_ = ([("co", _SchedCohort * MAX_COHORTS)]
+                + [(n, ctypes.c_void_p) for n in _PTR_FIELDS]
                 + [(n, ctypes.c_int) for n in _INT_FIELDS]
                 + [(n, ctypes.c_double) for n in _DBL_FIELDS])
 
@@ -536,13 +568,25 @@ def _lib():
     lib = _build.load("sched_step")
     fn = lib.sched_step_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.POINTER(_SchedArgs), ctypes.c_void_p]
+        fn.argtypes = [ctypes.POINTER(_SchedArgs), ctypes.c_int,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
+def slot_count(T: int) -> int:
+    """Ring slots one lane holds for ``T`` thread slots: the ``NS`` of the
+    kernel body that steps the cohort (1, 2, 4 or 8)."""
+    ns = 1
+    while 32 * ns < T:
+        ns *= 2
+    return ns
+
+
 def _shared_bytes(T, W, C, P, S, has_lat):
-    n = T * W + C * P + 2 * C + 2 * S + (HIST_BINS if has_lat else 0)
+    # pft rows, every thread's cached (kind, dur, i + 1, op end), the
+    # prefetch windows, the core clocks, the token clocks, the histogram
+    n = T * W + 4 * T + C * P + 2 * C + 2 * S + (HIST_BINS if has_lat else 0)
     return 8 * n
 
 
@@ -562,13 +606,22 @@ def _split_state(state, flags):
     return dict(zip(names, state))
 
 
-def _launch(flags, state, u_block, kd, se, arr, n_trace, L_mem_g, nthr_g,
-            warm_g, n_ops, dyn):
-    """Validate everything the kernel assumes, then launch it in place on
-    ``state``.  Raises on anything it does not take -- never falls back."""
+def _check(tensors, expect, dev):
+    for name, t in tensors.items():
+        shape, dt = expect[name]
+        if (t.device != dev or t.dtype != dt or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"fused_steps kernel: {name} must be a contiguous {shape} "
+                f"{dt} tensor on {dev}; got {tuple(t.shape)} {t.dtype} on "
+                f"{t.device}, contiguous={t.is_contiguous()}")
+
+
+def _cohort_tensors(flags, state, L_mem_g, nthr_g, warm_g):
+    """Validate one cohort against what the kernel takes; returns its named
+    tensors, ``G``, ``T`` and ``P``."""
     pl = _split_state(state, flags)
     stamp = pl["stamp"]
-    dev = stamp.device
     G, T = stamp.shape
     C = flags["n_cores"]
     has_lat = flags["has_lat"]
@@ -576,9 +629,7 @@ def _launch(flags, state, u_block, kd, se, arr, n_trace, L_mem_g, nthr_g,
     W = 3 if has_lat else 2
     NCI = 7 if has_lat else 6
     S = flags["n_ssd"]
-    n_u = flags["n_u"]
     P = pl["pf_slots"].shape[-1]
-    K = u_block.shape[0]
     f8, i4 = torch.float64, torch.int32
     if T > MAX_THREAD_SLOTS or T % C:
         raise ValueError(
@@ -595,8 +646,6 @@ def _launch(flags, state, u_block, kd, se, arr, n_trace, L_mem_g, nthr_g,
             f"fused_steps kernel needs {need} bytes of shared memory per "
             f"cell (T={T}, P={P}, n_cores={C}, n_ssd={S}); the limit is "
             f"{MAX_SHARED_BYTES}")
-    if n_u != 2 * flags["has_eps"] + flags["has_jitter"] + flags["has_rho"]:
-        raise ValueError("n_u does not match the draw-consuming flags")
     expect = {
         "cf": ((G, 6), f8), "ci": ((G, NCI), i4), "stamp": ((G, T), f8),
         "wake": ((G, T), f8), "pft": ((G, T, W), f8),
@@ -604,40 +653,83 @@ def _launch(flags, state, u_block, kd, se, arr, n_trace, L_mem_g, nthr_g,
         "cores": ((G, C, 2), f8), "io_tok": ((G, S), f8),
         "io_bw": ((G, S), f8), "hist": ((G, HIST_BINS), f8),
         "latmax": ((G,), f8),
-    }
-    tensors = dict(pl)
-    tensors.update(kd=kd, se=se, L_mem_g=L_mem_g, nthr_g=nthr_g,
-                   warm_g=warm_g)
-    expect.update({
-        "kd": ((kd.shape[0], 2), f8), "se": ((se.shape[0], 2), f8),
         "L_mem_g": ((G,), f8), "nthr_g": ((G,), i4), "warm_g": ((G,), i4),
-    })
-    if n_u:
-        tensors["u"] = u_block
-        expect["u"] = ((K, n_u, G), f8)
-    elif tuple(u_block.shape[1:]) != (0, G):
+    }
+    tensors = dict(pl, L_mem_g=L_mem_g, nthr_g=nthr_g, warm_g=warm_g)
+    _check(tensors, expect, stamp.device)
+    return tensors, G, T, P
+
+
+def group_args(flags, parts, u_block, kd, se, arr, n_trace, n_ops, dyn,
+               prof=None) -> _SchedArgs:
+    """The kernel's argument block for one grouped launch, validated.
+
+    ``parts`` holds one ``(state, L_mem_g, nthr_g, warm_g)`` per cohort, in
+    launch order: cohort ``c`` gets the blocks (cells) ``block0 ..
+    block0 + G - 1``, ``block0`` the prefix sum of the cohorts before it,
+    and the kernel body of its slot count ``NS`` (:func:`slot_count`).
+    ``u_block`` is ``(K, n_u, sum G)`` with cohort ``c``'s cells at columns
+    ``block0 ..``; ``prof`` the ``(sum G, len(PROF_COLUMNS))`` int64 buffer
+    of the profiling instance, or None.  Every cohort shares the flags, the
+    trace tables and the scalars.  Raises ``ValueError`` on anything the
+    kernel does not take: more than :data:`MAX_COHORTS` cohorts, or a cohort
+    beyond the kernel's limits (thread slots, prefetch slots, devices,
+    shared memory) -- the caller never falls back to the plain step."""
+    parts = list(parts)
+    if not 1 <= len(parts) <= MAX_COHORTS:
         raise ValueError(
-            f"u_block: expected (K, 0, {G}), got {tuple(u_block.shape)}")
-    if flags["has_arr"]:
-        tensors["arr"] = arr
-        expect["arr"] = ((arr.shape[0],), f8)
-    for name, t in tensors.items():
-        shape, dt = expect[name]
-        if (t.device != dev or t.dtype != dt or tuple(t.shape) != shape
-                or not t.is_contiguous()):
+            f"fused_steps kernel steps 1 to {MAX_COHORTS} cohorts a launch, "
+            f"got {len(parts)}")
+    f8 = torch.float64
+    has_lat = flags["has_lat"]
+    n_u = flags["n_u"]
+    if n_u != 2 * flags["has_eps"] + flags["has_jitter"] + flags["has_rho"]:
+        raise ValueError("n_u does not match the draw-consuming flags")
+    a = _SchedArgs()
+    block0, P, dev = 0, None, None
+    for c, (state, L_mem_g, nthr_g, warm_g) in enumerate(parts):
+        tensors, G, T, Pc = _cohort_tensors(flags, state, L_mem_g, nthr_g,
+                                            warm_g)
+        d = state[2].device
+        if dev is None:
+            dev, P = d, Pc
+        elif d != dev or Pc != P:
             raise ValueError(
-                f"fused_steps kernel: {name} must be a contiguous {shape} "
-                f"{dt} tensor on {dev}; got {tuple(t.shape)} {t.dtype} on "
-                f"{t.device}, contiguous={t.is_contiguous()}")
+                f"fused_steps kernel: cohort {c} has P={Pc} on {d}; every "
+                f"cohort of a launch shares P={P} and the device {dev}")
+        co = a.co[c]
+        for name in _COHORT_PTR_FIELDS:
+            t = tensors.get(name)
+            setattr(co, name,
+                    t.data_ptr() if t is not None and t.numel() else None)
+        co.G, co.T, co.NS, co.block0 = G, T, slot_count(T), block0
+        block0 += G
+    K = u_block.shape[0]
+    shared = {"kd": kd, "se": se}
+    expect = {"kd": ((kd.shape[0], 2), f8), "se": ((se.shape[0], 2), f8)}
+    if n_u:
+        shared["u"] = u_block
+        expect["u"] = ((K, n_u, block0), f8)
+    elif tuple(u_block.shape[1:]) != (0, block0):
+        raise ValueError(
+            f"u_block: expected (K, 0, {block0}), got "
+            f"{tuple(u_block.shape)}")
+    if flags["has_arr"]:
+        shared["arr"] = arr
+        expect["arr"] = ((arr.shape[0],), f8)
+    if prof is not None:
+        shared["prof"] = prof
+        expect["prof"] = ((block0, len(PROF_COLUMNS)), torch.int64)
+    _check(shared, expect, dev)
     if n_trace < 1 or n_trace > se.shape[0]:
         raise ValueError(f"n_trace={n_trace} outside the se table")
-    a = _SchedArgs()
     for name in _PTR_FIELDS:
-        t = tensors.get(name)
+        t = shared.get(name)
         setattr(a, name, t.data_ptr() if t is not None and t.numel() else None)
-    for name, v in (("G", G), ("T", T), ("P", P), ("S", S), ("C", C),
-                    ("W", W), ("NCI", NCI), ("n_u", n_u), ("K", K),
-                    ("n_trace", int(n_trace)),
+    for name, v in (("n_cohorts", len(parts)), ("n_blocks", block0),
+                    ("P", P), ("S", flags["n_ssd"]), ("C", flags["n_cores"]),
+                    ("W", 3 if has_lat else 2), ("NCI", 7 if has_lat else 6),
+                    ("n_u", n_u), ("K", K), ("n_trace", int(n_trace)),
                     ("n_arr", arr.shape[0] if flags["has_arr"] else 0)):
         setattr(a, name, v)
     for name in _FLAG_FIELDS:
@@ -646,31 +738,93 @@ def _launch(flags, state, u_block, kd, se, arr, n_trace, L_mem_g, nthr_g,
     for name, v in zip(DYN_NAMES, dyn):
         setattr(a, name, float(v))
     a.hist_lo, a.hist_inv_ln_ratio = HIST_LO, HIST_INV_LN_RATIO
-    if G == 0 or K == 0:
+    return a
+
+
+def _launch_group(flags, parts, u_block, kd, se, arr, n_trace, n_ops, dyn,
+                  prof=None):
+    """Validate, then launch the kernel once in place on every cohort's
+    state (the profiling instance when ``prof`` is given)."""
+    a = group_args(flags, parts, u_block, kd, se, arr, n_trace, n_ops, dyn,
+                   prof)
+    if a.n_blocks == 0 or a.K == 0:
         return
     fn = _lib()
     from ._build import check_launch
+    dev = parts[0][0][2].device
     with torch.cuda.device(dev):
-        code = fn(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
+        code = fn(ctypes.byref(a), int(prof is not None),
+                  torch.cuda.current_stream(dev).cuda_stream)
     check_launch(code, "fused_steps")
     fused_steps.launches += 1
 
 
+def _launch(flags, state, u_block, kd, se, arr, n_trace, L_mem_g, nthr_g,
+            warm_g, n_ops, dyn):
+    """One cohort: the grouped launch of one, in place on ``state``."""
+    _launch_group(flags, [(state, L_mem_g, nthr_g, warm_g)], u_block, kd, se,
+                  arr, n_trace, n_ops, dyn)
+
+
+def fused_steps_group(substep, parts, u_block, kd, se, arr, n_trace, n_ops,
+                      dyn, *, prof=None):
+    """Advance every cohort of ``parts`` by K substeps; returns their new
+    state tuples, in order.
+
+    ``parts`` holds one ``(state, L_mem_g, nthr_g, warm_g)`` per cohort (at
+    most :data:`MAX_COHORTS`); the cohorts share ``substep``'s flags, the
+    trace tables and the scalars.  ``u_block`` is ``(K, n_u, sum G)``, the
+    cohorts' uniform blocks side by side in ``parts`` order.
+
+    State on a CUDA device launches the CUDA kernel once for all cohorts,
+    in place (or raises on what the kernel does not take -- it never runs
+    the plain version instead); ``fused_steps.launches`` counts those
+    launches.  ``prof``, a zeroed ``(sum G, len(PROF_COLUMNS))`` int64
+    tensor on the card, launches the profiling instance instead, which adds
+    its phase cycles to ``prof`` and leaves every state plane as the normal
+    instance does.  State on the CPU loops the plain ``substep`` K times
+    over each cohort's columns of ``u_block``.
+    """
+    parts = list(parts)
+    if parts and parts[0][0][2].is_cuda:
+        _launch_group(substep.flags, parts, u_block, kd, se, arr, n_trace,
+                      n_ops, dyn, prof)
+        return [p[0] for p in parts]
+    if prof is not None:
+        raise ValueError("the profiling instance of fused_steps runs on a "
+                         "CUDA device only")
+    widths = [p[0][2].shape[0] for p in parts]
+    if u_block.shape[2] != sum(widths):
+        raise ValueError(f"u_block has {u_block.shape[2]} cell columns, the "
+                         f"cohorts {sum(widths)}")
+    out, off = [], 0
+    for (state, L_mem_g, nthr_g, warm_g), G in zip(parts, widths):
+        u = u_block[:, :, off:off + G]
+        for k in range(u.shape[0]):
+            state = substep(state, u[k], kd, se, arr, nthr_g, n_trace,
+                            L_mem_g, warm_g, n_ops, dyn)
+        out.append(state)
+        off += G
+    return out
+
+
 def fused_steps(substep, state, u_block, kd, se, arr, n_trace, L_mem_g,
                 nthr_g, warm_g, n_ops, dyn, *, inplace: bool = False):
-    """Advance ``state`` by K substeps; returns the new state tuple.
+    """Advance one cohort's ``state`` by K substeps; returns the new state
+    tuple.
 
     ``substep`` must come from :func:`make_substep` (it carries the static
     flags); ``u_block`` is the ``(K, n_u, G)`` uniform feed (``n_u`` may be
     0); ``arr`` the shared arrival vector (any tensor when closed loop) and
     ``nthr_g`` the per-cell thread counts.
 
-    State on a CUDA device launches the CUDA kernel once (or raises on what
+    State on a CUDA device launches the CUDA kernel once -- the grouped
+    launch of :func:`fused_steps_group` with one cohort (or raises on what
     the kernel does not take -- it never runs the plain version instead);
-    ``fused_steps.launches`` counts those launches.  State on the CPU loops
-    the plain ``substep`` K times.  ``inplace=True`` lets the kernel
-    overwrite the given planes (the chunk loop does, saving a copy of the
-    whole state per launch); the default copies first, like the functional
+    ``fused_steps.launches`` counts the grouped launches of both functions.
+    State on the CPU loops the plain ``substep`` K times.  ``inplace=True``
+    lets the kernel overwrite the given planes (saving a copy of the whole
+    state per launch); the default copies first, like the functional
     reference.
     """
     flags = substep.flags

@@ -40,7 +40,8 @@ from repro_torch.kernels import sched_step as sk
 from repro_torch.kernels.token_clock import token_clock_update_ref
 
 __all__ = ["FLAG_SETS", "make_case", "step_args", "states_agree",
-           "hist_equal_or_adjacent", "run_plain", "run_fused",
+           "hist_equal_or_adjacent", "run_plain", "run_fused", "GROUP_T",
+           "make_group_case", "run_group_plain", "run_group_fused",
            "PAGED_CASES", "PAGED_EDGE", "PAGED_SERVE", "PAGED_LONG",
            "PAGED_TOL", "PAGED_ROW_TOL", "MODEL_TOL", "make_paged_case",
            "paged_tensors", "PAGED_SPLIT_CASES", "with_bad_page_ids",
@@ -69,11 +70,13 @@ FLAG_SETS = {
 
 
 def make_case(trace, spec, seed, *, latencies=(1 * US, 5 * US),
-              candidates=(3, 8), P=4, n_ops=40, warm=4, n_steps=96):
+              candidates=(3, 8), P=4, n_ops=40, warm=4, n_steps=96,
+              arr=None):
     """One self-check case as numpy data: static flags, dyn scalars, per-cell
     vectors, packed trace columns, the init state and ``n_steps`` uniform
     rows -- everything both packages (or both devices) need to step the same
-    cells."""
+    cells.  ``arr`` replaces the drawn arrival vector of an open-loop case
+    (it must cover the case's threads)."""
     spec = dict(spec)
     n_cores = spec.get("n_cores", 1)
     n_ssd = spec.get("n_ssd", 1)
@@ -100,8 +103,9 @@ def make_case(trace, spec, seed, *, latencies=(1 * US, 5 * US),
     warm_g = np.full_like(nthr_g, warm)
     G, T_max = len(L_mem_g), max(candidates)
     CT = n_cores * T_max
-    arr = np.zeros(1)
-    if has_arr:
+    if not has_arr:
+        arr = np.zeros(1)
+    elif arr is None:
         gaps = rng.exponential(1.0 / spec["arr_rate"],
                                size=4 * (CT + n_ops + warm) + 64)
         arr = np.cumsum(gaps)
@@ -164,6 +168,66 @@ def run_fused(case, device, block: int | None = None):
     for b in range(0, u.shape[0], block):
         state = sk.fused_steps(sub, state, u[b:b + block], *tail)
     return state
+
+
+#: Thread slots per core of the cohorts of :func:`make_group_case`: one
+#: cohort for each of the kernel bodies NS = 1, 2, 4 (8 with two cores).
+GROUP_T = (5, 40, 70)
+
+
+def make_group_case(trace, spec, seed, *, t_max=GROUP_T, n_steps=192,
+                    **kw):
+    """Cohorts of one grid, one :func:`make_case` each: thread slots
+    ``t_max`` (two thread counts a cohort, the widest ``t_max``), their own
+    init states and uniforms, and everything else -- flags, scalars, trace
+    tables, the arrival vector -- shared, as :func:`plan_grid` shares it.
+    Returns ``{"cohorts": [case, ...]}`` plus the shared entries of the
+    first case."""
+    cohorts = []
+    arr = None
+    for i, T in enumerate(sorted(t_max, reverse=True)):
+        c = make_case(trace, spec, seed + i, candidates=(max(1, T - 2), T),
+                      n_steps=n_steps, arr=arr, **kw)
+        arr = c["arr"]
+        cohorts.append(c)
+    cohorts.reverse()                       # narrowest first, like plan_grid
+    return dict(cohorts[0], cohorts=cohorts)
+
+
+def run_group_plain(gcase, device, steps):
+    """Each cohort stepped alone by the plain version, ``steps[c]`` steps."""
+    return [run_plain(dict(c, u=c["u"][:n]), device)
+            for c, n in zip(gcase["cohorts"], steps)]
+
+
+def run_group_fused(gcase, device, steps, block=64, profile=False):
+    """The cohorts through :func:`fused_steps_group`, ``block`` steps a
+    launch; cohort ``c`` leaves the group after ``steps[c]`` steps (whole
+    blocks), as a cohort leaves the chunk loop at its step bound.  Returns
+    the states and, with ``profile``, each launch's profiling buffer."""
+    dev = torch.device(device)
+    _, _, (kd, se, arr, n_trace, _, _, _, n_ops, dyn) = step_args(
+        gcase, dev)
+    cohorts = [step_args(c, dev) for c in gcase["cohorts"]]
+    states = [s for s, _, _ in cohorts]
+    sub = sk.make_substep(**gcase["static"])
+    profs = []
+    for b in range(0, max(steps), block):
+        live = [i for i, n in enumerate(steps) if n > b]
+        u = torch.cat([cohorts[i][1][b:b + block] for i in live], dim=2)
+        # (state, L_mem_g, nthr_g, warm_g) of each live cohort
+        parts = [(states[i], *cohorts[i][2][4:7]) for i in live]
+        prof = None
+        if profile:
+            prof = torch.zeros(sum(states[i][2].shape[0] for i in live),
+                               len(sk.PROF_COLUMNS), dtype=torch.int64,
+                               device=dev)
+            profs.append(prof)
+        new = sk.fused_steps_group(sub, parts, u.contiguous(), kd, se, arr,
+                                   n_trace, n_ops, dyn, prof=prof)
+        for i, s in zip(live, new):
+            states[i] = s
+    return (states, profs) if profile else states
 
 
 def _bits(a):

@@ -69,6 +69,62 @@ def test_fused_kernel_matches_plain_version(cuda, small_trace, name):
     assert ok, f"{name}: plane {bad} differs (max abs err {err})"
 
 
+@pytest.mark.parametrize("name", sorted(cases.FLAG_SETS))
+def test_grouped_launch_matches_plain_version_per_cohort(cuda, small_trace,
+                                                         name):
+    """Three cohorts in one launch -- T 5 / 40 / 70 per core, the NS 1 / 2 /
+    4 bodies (2 / 4 / 8 with two cores) -- one leaving after 64 steps and
+    one after 128: every cohort bit-equal to the plain version run alone."""
+    g = cases.make_group_case(small_trace, cases.FLAG_SETS[name], 29,
+                              n_steps=192)
+    steps = (192, 64, 128)
+    before = sk.fused_steps.launches
+    plain = cases.run_group_plain(g, cuda, steps)
+    fused = cases.run_group_fused(g, cuda, steps, block=64)
+    torch.cuda.synchronize()
+    assert sk.fused_steps.launches == before + 3
+    for c, a, b in zip(g["cohorts"], plain, fused):
+        ok, err, bad = cases.states_agree(a, b, c["has_lat"])
+        assert ok, f"{name}, T={c['state'][2].shape[1]}: plane {bad} " \
+            f"differs (max abs err {err})"
+
+
+@pytest.mark.parametrize("name", ["plain", "rio+bio-2ssd", "2cores",
+                                  "open-loop+pct+deadline"])
+def test_profiling_instance_bit_equal_to_normal_instance(cuda, small_trace,
+                                                         name):
+    """The profiling instance leaves every plane as the normal one does,
+    bit for bit, and its buffer holds a consistent split."""
+    g = cases.make_group_case(small_trace, cases.FLAG_SETS[name], 31,
+                              n_steps=128)
+    steps = (128, 64, 128)
+    normal = cases.run_group_fused(g, cuda, steps)
+    timed, profs = cases.run_group_fused(g, cuda, steps, profile=True)
+    torch.cuda.synchronize()
+    for a, b in zip(normal, timed):
+        ok, err, bad = cases.states_agree(a, b, False)
+        assert ok, f"{name}: plane {bad} differs (max abs err {err})"
+    n_ph = len(sk.PROF_PHASES)
+    for prof, block_cells in zip(profs, (6, 6)):
+        p = prof.cpu().numpy()
+        assert p.shape[1] == len(sk.PROF_COLUMNS)
+        assert (p[:, :n_ph] >= 0).all() and (p[:, :n_ph].sum(1) > 0).all()
+        assert (p[:, :n_ph].sum(1) <= p[:, -1]).all()
+        assert (p[:, n_ph] <= 64).all()          # idle skips <= steps
+
+
+def test_grid_steps_every_cohort_in_one_launch(cuda, small_trace):
+    """Three cohorts of a grid, run to their bounds: one launch a chunk."""
+    cfg = SimConfig(P=12, seed=7, n_ssd=2, R_io=250e3, L_switch=0.3 * US)
+    before = sk.fused_steps.launches
+    grid = rt.sweep_grid(cfg, small_trace, [1 * US, 5 * US], [3, 8, 20],
+                         n_ops=150, device=cuda, early_exit=False)
+    assert sk.fused_steps.launches - before == grid.steps // 1024
+    cpu = rt.sweep_grid(cfg, small_trace, [1 * US, 5 * US], [3, 8, 20],
+                        n_ops=150, device="cpu")
+    assert np.array_equal(grid.throughput, cpu.throughput)
+
+
 def test_token_clock_kernel_matches_plain_version(cuda):
     rng = np.random.default_rng(5)
     G, S = 300, 3
