@@ -173,7 +173,8 @@ def _build_variants(out: Path) -> dict[str, ctypes.CDLL]:
         d = out / name
         d.mkdir(parents=True, exist_ok=True)
         (d / "flash_attention.cu").write_text(src)
-        shutil.copy(_build.CSRC / "dtype.cuh", d / "dtype.cuh")
+        for hdr in _build.CSRC.glob("*.cuh"):
+            shutil.copy(hdr, d / hdr.name)
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I",
                str(d), "-o", str(d / "lib.so"), str(d / "flash_attention.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,

@@ -159,6 +159,7 @@ def reset_counts():
     fa.flash_attention.launches_by_instance = dict.fromkeys(fa.INSTANCES, 0)
     pk.paged_decode_attention.launches_by_instance = dict.fromkeys(
         pk.INSTANCES, 0)
+    wk.wkv6.launches_by_instance = dict.fromkeys(wk.INSTANCES, 0)
 
 
 def counts():
@@ -210,11 +211,28 @@ def phase_build():
     sched = lib_ptxas(info["log"], "sched_step", _sched_func)
     sched_sass = {op: sass_count("sched_step", _sched_func, op)
                   for op in ("REDUX", "SHFL")}
+    wkv = lib_ptxas(info["log"], "wkv6", _wkv_func)
+    wkv_sass = {op: sass_count("wkv6", _wkv_func, op)
+                for op in ("HMMA", "MUFU")}
     emit("build", seconds=round(info["seconds"], 3), built=info["built"],
          nvcc_flags=info["flags"], dir=str(_build.build_dir().relative_to(ROOT)),
          ptxas=regs[:12], flash_ptxas=flash, flash_hgmma=hgmma,
          paged_ptxas=paged, paged_hmma=hmma, sched_ptxas=sched,
-         sched_sass=sched_sass)
+         sched_sass=sched_sass, wkv_ptxas=wkv, wkv_sass=wkv_sass)
+    tc_keys = sorted(k for k in WKV_FUNCS.values()
+                     if k.startswith("chunk_tc_bf16"))
+    if "wkv6" in info["built"] and sorted(
+            k for k in wkv if k.startswith("chunk_tc_bf16")) != tc_keys:
+        fail(f"ptxas reported no lines for some wkv6 chunk_tc_bf16 kernels: "
+             f"{sorted(wkv)}")
+    if any(not e.get("spills", "").startswith(
+            "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")
+           for k, e in wkv.items() if k.startswith("chunk_tc_bf16")):
+        fail(f"a wkv6 chunk_tc_bf16 kernel spills: {wkv}")
+    if wkv_sass["HMMA"] is not None and not all(
+            wkv_sass["HMMA"].get(k, 0) > 0 for k in tc_keys):
+        fail(f"a wkv6 chunk_tc_bf16 kernel has no HMMA instruction: "
+             f"{wkv_sass}")
     if hmma is not None and not all(
             n > 0 for k, n in hmma.items() if k.startswith("mma_bf16")):
         fail(f"a paged mma_bf16 kernel has no HMMA instruction: {hmma}")
@@ -222,7 +240,7 @@ def phase_build():
             "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")
            and k.startswith("mma_bf16") for k, e in paged.items()):
         fail(f"a paged mma_bf16 kernel spills: {paged}")
-    return flash, hgmma, paged, hmma, sched, sched_sass
+    return flash, hgmma, paged, hmma, sched, sched_sass, wkv, wkv_sass
 
 
 #: mangled kernel name -> key ("instance/D<head_dim>") of the flash library
@@ -245,8 +263,17 @@ def _prefix_key(table):
     return key
 
 
+#: ... and of the wkv6 library, by instance, head_dim and log_w's type
+WKV_FUNCS = {**{f"_Z14wkv6_tc_kernelILi{D}E{m}": f"chunk_tc_bf16/D{D}/{w}"
+                for D in wk.TC_HEAD_DIMS
+                for m, w in (("f", "log_w f32"),
+                             ("13__nv_bfloat16", "log_w bf16"))},
+             "_Z11wkv6_kernelIffE": "scalar_f32/log_w f32",
+             "_Z11wkv6_kernelIf13__nv_bfloat16E": "scalar_f32/log_w bf16"}
+
 _flash_func = _prefix_key(FLASH_FUNCS)
 _paged_func = _prefix_key(PAGED_FUNCS)
+_wkv_func = _prefix_key(WKV_FUNCS)
 
 
 def _sched_func(name):
@@ -1302,44 +1329,67 @@ def flash_vs_twin(B, Hq, Hkv, S, seed):
 
 def phase_wkv_checks(seed):
     """The wkv6 kernel against its plain version (the sequential float32
-    recurrence) on the reference's four ``WKV_CASES`` and at ``WKV_BENCH``
-    (rwkv6-3b's width, inputs drawn on the card as the bench draws them),
-    under the reference's scaled tolerance; the plain version's time at
+    recurrence): the reference's four ``WKV_CASES``, the ``WKV_TC_CASES`` of
+    the tensor-core instance, both strong-decay patterns with log_w in
+    float32 and bf16, and ``WKV_BENCH`` (rwkv6-3b's width, inputs drawn on
+    the card as the bench draws them).  Each within the reference's scaled
+    tolerance and ``WKV_ROW_TOL`` of each (b, t, h) row, run by the instance
+    of its dtype (named in the check), finite, and the same bits from a
+    second call and from a call with the caller's chunk 1 (the kernels'
+    results do not depend on it).  The plain version's time at
     ``WKV_BENCH``."""
-    checks, worst = [], {"bfloat16": 0.0, "float32": 0.0}
-    for i, case in enumerate(cases.WKV_CASES):
-        c = cases.make_wkv_case(case, seed=0)
+    checks = []
+    worst = {"bfloat16": 0.0, "float32": 0.0}
+    worst_row = {"bfloat16": 0.0, "float32": 0.0}
+    named = [(f"wkv-{i}", c, None) for i, c in enumerate(cases.WKV_CASES)]
+    named += [(f"tc-{i}", c, None) for i, c in enumerate(cases.WKV_TC_CASES)]
+    named += [(f"decay-{d}-{w}", (2, 1024, 2, 64, 32, "bfloat16", w), d)
+              for d in cases.WKV_DECAYS for w in ("float32", "bfloat16")]
+    for name, case, decay in named:
+        c = cases.make_wkv_case(case, seed=0, decay=decay)
         args = cases.wkv_tensors(c, DEV)
-        got = wk.wkv6(*args, chunk=c["chunk"])
-        want = wkv6_ref(*args)
-        torch.cuda.synchronize()
-        err = cases.wkv_err(got, want)
-        tol = cases.tol(c["dtype"])
-        checks.append({"case": f"wkv-{i}", "shape": list(case[:4]),
-                       "chunk": c["chunk"], "dtype": c["dtype"],
-                       "scaled_max_abs_err": err, "tol": tol})
-        worst[c["dtype"]] = max(worst[c["dtype"]], err)
-        if not err <= tol:
-            fail(f"wkv6 disagrees with its plain version on wkv-{i}: scaled "
-                 f"max abs err {err} > {tol}")
+        checks.append(wkv_check(name, list(case[:4]), c["chunk"],
+                                c["dtype"], args))
     B, S, H, D = cases.WKV_BENCH
-    r, k, v, lw, u = kbench.wkv_inputs(B, S, H, D, DEV, seed)
-    got = wk.wkv6(r, k, v, lw, u)
-    want = wkv6_ref(r, k, v, lw, u)
-    torch.cuda.synchronize()
-    err = cases.wkv_err(got, want)
-    if not (bool(torch.isfinite(got).all()) and err <= cases.tol("bfloat16")):
-        fail(f"wkv6 at the bench shape: scaled max abs err {err}")
-    worst["bfloat16"] = max(worst["bfloat16"], err)
-    plain_ms = cuda_ms(lambda: wkv6_ref(r, k, v, lw, u), 1)
-    checks.append({"case": "bench", "shape": [B, S, H, D], "chunk": 64,
-                   "dtype": "bfloat16 r/k/v, float32 log_w and u",
-                   "scaled_max_abs_err": err, "tol": cases.tol("bfloat16")})
-    del r, k, v, lw, u, got, want
+    args = kbench.wkv_inputs(B, S, H, D, DEV, seed)
+    checks.append(wkv_check("bench", [B, S, H, D], 64, "bfloat16", args))
+    plain_ms = cuda_ms(lambda: wkv6_ref(*args), 1)
+    del args
     torch.cuda.empty_cache()
+    for ck in checks:
+        dt = ck["dtype"]
+        worst[dt] = max(worst[dt], ck["scaled_max_abs_err"])
+        worst_row[dt] = max(worst_row[dt], ck["max_row_rel_err"])
     emit("wkv_checks", n_checks=len(checks), max_abs_err_by_dtype=worst,
-         checks=checks, plain_ms_bench=plain_ms)
-    return worst, plain_ms
+         max_row_rel_err_by_dtype=worst_row, checks=checks,
+         plain_ms_bench=plain_ms)
+    return worst, worst_row, plain_ms
+
+
+def wkv_check(name, shape, chunk, dtype, args):
+    """One wkv6 check of :func:`phase_wkv_checks`; fails the run."""
+    before = dict(wk.wkv6.launches_by_instance)
+    got = wk.wkv6(*args, chunk=chunk)
+    want = wkv6_ref(*args)
+    torch.cuda.synchronize()
+    ran = [i for i, n in wk.wkv6.launches_by_instance.items()
+           if n != before[i]]
+    same_bits = bool(torch.equal(wk.wkv6(*args, chunk=chunk), got)
+                     and torch.equal(wk.wkv6(*args, chunk=1), got))
+    err = cases.wkv_err(got, want)
+    row = cases.row_rel_err(got, want)
+    tol = cases.tol(dtype)
+    finite = bool(torch.isfinite(got).all())
+    check = {"case": name, "shape": shape, "chunk": chunk, "dtype": dtype,
+             "log_w": str(args[3].dtype).replace("torch.", ""),
+             "instance": ran, "scaled_max_abs_err": err, "tol": tol,
+             "max_row_rel_err": row, "row_tol": cases.WKV_ROW_TOL,
+             "finite": finite, "same_bits_repeat_and_chunk_1": same_bits}
+    if ran != [wk.instance_for(getattr(torch, dtype))]:
+        fail(f"wkv6 on {name} ({dtype}) ran {ran}")
+    if not (finite and err <= tol and row <= cases.WKV_ROW_TOL and same_bits):
+        fail(f"wkv6 disagrees with its plain version on {name}: {check}")
+    return check
 
 
 def phase_kernels_bench(seed):
@@ -1355,6 +1405,7 @@ def phase_kernels_bench(seed):
     launches = counts()
     flash_by_instance = dict(fa.flash_attention.launches_by_instance)
     paged_by_instance = dict(pk.paged_decode_attention.launches_by_instance)
+    wkv_by_instance = dict(wk.wkv6.launches_by_instance)
     for name in ("flash_attention", "paged_decode_attention", "wkv6"):
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the kernels_bench path")
@@ -1367,6 +1418,11 @@ def phase_kernels_bench(seed):
                              launches["paged_decode_attention"]}:
         fail(f"paged_decode_attention launches in the kernels_bench window "
              f"by instance: {paged_by_instance}, not all mma_bf16")
+    # ... and its wkv6 inputs bf16: every launch is the tensor-core instance
+    if wkv_by_instance != {"scalar_f32": 0,
+                           "chunk_tc_bf16": launches["wkv6"]}:
+        fail(f"wkv6 launches in the kernels_bench window by instance: "
+             f"{wkv_by_instance}, not all chunk_tc_bf16")
     if launches["fused_steps"] or launches["token_clock_update"]:
         fail(f"the kernels_bench path launched a scheduler kernel: "
              f"{launches}")
@@ -1377,9 +1433,10 @@ def phase_kernels_bench(seed):
                 fail(f"kernels_bench row {row['name']}: time {row['ms']}")
     emit("kernels_bench", wall_s=wall_s, launches=launches,
          flash_launches_by_instance=flash_by_instance,
-         paged_launches_by_instance=paged_by_instance, rows=rows,
+         paged_launches_by_instance=paged_by_instance,
+         wkv_launches_by_instance=wkv_by_instance, rows=rows,
          peak_flops=kbench.PEAK_FLOPS, hbm_bytes_per_s=kbench.HBM_BW)
-    return rows, launches, flash_by_instance
+    return rows, launches, flash_by_instance, wkv_by_instance
 
 
 def main():
@@ -1393,7 +1450,7 @@ def main():
     torch.cuda.set_device(0)
     card, sm_mhz = phase_card()
     (flash_ptx, flash_hgmma_count, paged_ptx, paged_hmma, sched_ptx,
-     sched_sass) = phase_build()
+     sched_sass, wkv_ptx, wkv_sass) = phase_build()
 
     sc_small = scenario(2, (8,), n_keys=2000, n_wl_ops=600)
     store, wl = Experiment(sc_small).build()
@@ -1406,7 +1463,7 @@ def main():
     paged_err, paged_row, paged_bench_plain_ms = phase_paged_checks(
         args.seed)
     flash_err, flash_twin, flash_plain_long_ms = phase_flash_checks(args.seed)
-    wkv_err, wkv_plain_ms = phase_wkv_checks(args.seed)
+    wkv_err, wkv_row, wkv_plain_ms = phase_wkv_checks(args.seed)
 
     sc, art, launches = phase_main_path()
     plain_launches = phase_plain_step_path(art)
@@ -1485,7 +1542,8 @@ def main():
         tolerance=f"3e-2 bfloat16, 5e-5 float32 (absolute), and "
                   f"{PAGED_ROW_TOL} relative to each (b, query head) row")
     torch.cuda.empty_cache()
-    bench, bench_launches, flash_by_instance = phase_kernels_bench(args.seed)
+    bench, bench_launches, flash_by_instance, wkv_by_instance = \
+        phase_kernels_bench(args.seed)
     paged["launches_kernels_bench"] = bench_launches["paged_decode_attention"]
     pb = bench["paged_decode_bench"][0]
     paged["kernels_bench"] = {k: pb[k] for k in (
@@ -1536,13 +1594,20 @@ def main():
         replaces="src/repro/kernels/wkv6.py:56",
         launches=bench_launches["wkv6"], path="kernels_bench",
         max_abs_err=max(wkv_err.values()), max_abs_err_by_dtype=wkv_err,
+        max_row_rel_err_by_dtype=wkv_row,
         ms=w_row["ms"], plain_ms=wkv_plain_ms, bound_ms=w_row["bound_ms"],
         bound_by=w_row["bound_by"], library_ms=None,
         library="none: no PyTorch call computes it",
         shape=dict(zip(("B", "S", "H", "D"), w_row["shape"]),
                    dtype="bfloat16 r/k/v, float32 log_w and u"),
+        instance={"bfloat16": wk.instance_for(torch.bfloat16),
+                  "float32": wk.instance_for(torch.float32)},
+        launches_by_instance=wkv_by_instance,
+        blocks_per_sm=wk.blocks_per_sm(w_row["shape"][3]),
+        ptxas=wkv_ptx, sass=wkv_sass,
         tolerance="3e-2 bfloat16, 5e-5 float32, absolute after dividing by "
-                  "max|plain| + 1e-6")
+                  f"max|plain| + 1e-6, and {cases.WKV_ROW_TOL} relative to "
+                  "each (b, t, h) row")
     kernels = [fused, tok, paged, flash, wkv]
     total_s = time.perf_counter() - t_all
     emit("total", seconds=total_s)

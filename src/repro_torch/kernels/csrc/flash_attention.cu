@@ -67,10 +67,10 @@
 //   The output is acc / max(l, 1e-37).  Rows are padded by 4 floats so that
 //   a quarter warp's 16-byte loads of 8 rows hit 32 different banks.
 //   Shared memory for D 128: 85 760 bytes, two blocks an SM.
-#include <cuda.h>
 #include <math.h>
 
 #include "dtype.cuh"
+#include "tma.cuh"
 
 #define FA_THREADS 256
 #define FA_WARPS (FA_THREADS / 32)
@@ -291,62 +291,6 @@ struct TcShape {
   // wgmma descriptor layout type: 1 = 128-byte swizzle, 2 = 64-byte
   static constexpr uint32_t LAYOUT = SWB == 128 ? 1u : 2u;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// Returns once the phase of parity `parity` has completed.  A ring that
-// stops advancing traps after 10 s (a launch error) instead of hanging.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  uint64_t t0 = 0;
-  for (;;) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (t0 == 0) {
-      t0 = global_ns();
-    } else if (global_ns() - t0 > 10000000000ull) {
-      __trap();
-    }
-  }
-}
-
-// one box of a 3-D tensor map -> shared memory, completion on `bar`
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
-                                            int c0, int c1, int c2,
-                                            uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(bar) : "memory");
-}
 
 // shared-memory matrix descriptor of wgmma: start address, leading and
 // stride byte offsets (16-byte units), layout type in bits 62-63
@@ -759,32 +703,6 @@ static int launch_scalar(const void* q, const void* k, const void* v,
       (const float*)q, (const float*)k, (const float*)v, (float*)out, Hq, Hkv,
       S, causal, window, scale);
   return (int)cudaGetLastError();
-}
-
-typedef CUresult (*EncodeTiledFn)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, found through the runtime's entry-point query, so
-// the library needs no -lcuda
-static EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = (EncodeTiledFn)p;
-  }
-  return fn;
 }
 
 // A (BH, S, D) bf16 tensor as a 3-D tensor map of boxes `cols` x `rows` x 1,

@@ -49,6 +49,7 @@
 // operations per key and query row, far below the card's operations-per-byte
 // line.
 #include "dtype.cuh"
+#include "mma.cuh"
 
 #define PD_THREADS 128
 #define PD_WARPS (PD_THREADS / 32)
@@ -56,30 +57,6 @@
 #define PD_PV_ROWS 8
 #define TC_ROWS 64          // key rows a round of the mma_bf16 instance
 #define TC_QROWS 16         // query rows of one mma tile (rep <= 16)
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-// 16 bytes when `valid`, else 16 zero bytes (nothing is read from gmem)
-__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
-                                                 bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Wait until at most n of this thread's commit groups are still in flight.
 // Groups complete in commit order; for n > 7 waiting down to 7 is stronger
@@ -356,42 +333,6 @@ __global__ void __launch_bounds__(PD_THREADS) paged_decode_kernel(
 }
 
 // -- mma_bf16 -------------------------------------------------------------
-
-__device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned& r0,
-                                        unsigned& r1, unsigned& r2,
-                                        unsigned& r3) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(unsigned addr, unsigned& r0,
-                                              unsigned& r1, unsigned& r2,
-                                              unsigned& r3) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr)
-      : "memory");
-}
-
-// c += a (16 x 16, row) * b (16 x 8, col), bf16 in, float32 accumulate
-__device__ __forceinline__ void mma_16816(float* c, const unsigned* a,
-                                          unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // lo in the low half
-  return *reinterpret_cast<unsigned*>(&v);
-}
 
 // Element offset of 16-byte chunk c of row r in a swizzled (64, D) bf16
 // tile: the chunk index is XORed with the row so that the 8 rows one

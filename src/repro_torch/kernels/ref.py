@@ -11,7 +11,8 @@ import math
 
 import torch
 
-__all__ = ["flash_attention_ref", "paged_decode_attention_ref", "wkv6_ref"]
+__all__ = ["flash_attention_ref", "paged_decode_attention_ref", "wkv6_ref",
+           "wkv6_chunked_ref"]
 
 
 def flash_attention_ref(
@@ -96,3 +97,82 @@ def wkv6_ref(
     if not outs:
         return torch.empty_like(r)
     return torch.stack(outs, dim=1).to(r.dtype)
+
+
+def wkv6_chunked_ref(r, k, v, log_w, u, chunk: int = 32,
+                     quarter: int = 8) -> torch.Tensor:
+    """The chunk arithmetic of ``wkv6``'s ``chunk_tc_bf16`` kernel instance,
+    in float32, for the tests.  Chunks of ``chunk`` steps (a ragged last one
+    zero-padded); quarters of ``quarter`` steps inside, where the decays are
+    products of ``w = exp(log_w)`` that restart at every quarter (r scaled
+    from its quarter's start, k to its end).  The intra-chunk scores: the
+    second subchunk of ``chunk / 2`` steps against the first as one product
+    about their boundary, each quarter against the one before it in its
+    subchunk as a product about theirs, the diagonal quarter blocks element
+    by element with the decay carried as a running product along t, and
+    ``r_t . (u o k_t)`` on the diagonal.  Returns ``(B, S, H, D)`` in float32
+    (the kernel then rounds to r's dtype)."""
+    B, S, H, D = r.shape
+    C, Q = chunk, quarter
+    nq, half = C // Q, C // 2
+    nc = -(-S // C)
+    pad = nc * C - S
+
+    def chunks(x):
+        x = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, pad))
+        return x.reshape(B, nc, C, H, D).permute(1, 0, 3, 2, 4)  # c,B,H,C,D
+
+    rc, kc, vc, lwc = (chunks(x) for x in (r, k, v, log_w))
+    uf = u.float()[None, :, None, :]                         # 1,H,1,D
+    state = torch.zeros(B, H, D, D, dtype=torch.float32, device=r.device)
+    ys = []
+    for c in range(nc):
+        rq = rc[c].reshape(B, H, nq, Q, D)
+        kq = kc[c].reshape(B, H, nq, Q, D)
+        lq = lwc[c].reshape(B, H, nq, Q, D)
+        w = torch.exp(lq)
+        tot = torch.exp(lq.sum(3))                           # B,H,nq,D
+        one = torch.ones_like(w[:, :, :, :1])
+        fwd = torch.cat([one, torch.cumprod(w, 3)[:, :, :, :-1]], 3)
+        bwd = torch.cat([torch.flip(torch.cumprod(torch.flip(
+            w[:, :, :, 1:], (3,)), 3), (3,)), one], 3)
+        rq, kq = rq * fwd, kq * bwd      # r from its quarter's start, k to its end
+        ones = torch.ones_like(tot[:, :, :1])
+        pre = torch.cumprod(torch.cat([ones, tot[:, :, :-1]], 2), 2)
+        post = torch.flip(torch.cumprod(torch.cat(
+            [ones, torch.flip(tot, (2,))[:, :, :-1]], 2), 2), (2,))
+        r_hat = (rq * pre[:, :, :, None]).reshape(B, H, C, D)
+        k_hat = (kq * post[:, :, :, None]).reshape(B, H, C, D)
+        a = torch.zeros(B, H, C, C, dtype=torch.float32, device=r.device)
+        # the second subchunk against the first, about step chunk/2
+        q1 = nq // 2
+        r_sub = (rq[:, :, q1:] * torch.cumprod(torch.cat(
+            [ones, tot[:, :, q1:-1]], 2), 2)[:, :, :, None]).reshape(
+                B, H, half, D)
+        k_sub = (kq[:, :, :q1] * torch.flip(torch.cumprod(torch.cat(
+            [ones, torch.flip(tot[:, :, 1:q1], (2,))], 2), 2),
+            (2,))[:, :, :, None]).reshape(B, H, half, D)
+        a[:, :, half:, :half] = r_sub @ k_sub.transpose(-1, -2)
+        # inside each subchunk: each quarter against the one before it
+        for x in range(nq):
+            if x % q1:
+                a[:, :, x * Q:(x + 1) * Q, (x - 1) * Q:x * Q] = (
+                    rq[:, :, x] @ kq[:, :, x - 1].transpose(-1, -2))
+        # the diagonal quarter blocks, element by element
+        rr, kk = rc[c].reshape(B, H, nq, Q, D), kc[c].reshape(B, H, nq, Q, D)
+        bonus = (rr * uf[:, :, None] * kk).sum(-1)           # B,H,nq,Q
+        p = kk.clone()                                       # k_s o prod w
+        s_idx = torch.arange(Q, device=r.device)
+        diag = torch.diag_embed(bonus)                       # B,H,nq,Q,Q
+        for t in range(1, Q):
+            at = (rr[:, :, :, t, None, :] * p).sum(-1)       # B,H,nq,Q(s)
+            live = s_idx < t
+            diag[:, :, :, t, :] = torch.where(live, at, diag[:, :, :, t, :])
+            p = torch.where(live[:, None], p * w[:, :, :, t, None, :], p)
+        for x in range(nq):
+            a[:, :, x * Q:(x + 1) * Q, x * Q:(x + 1) * Q] = diag[:, :, x]
+        ys.append(r_hat @ state + a @ vc[c])
+        dec = tot.prod(2)                                    # B,H,D
+        state = state * dec[..., None] + k_hat.transpose(-1, -2) @ vc[c]
+    y = torch.stack(ys, 0).permute(1, 0, 3, 2, 4).reshape(B, nc * C, H, D)
+    return y[:, :S]

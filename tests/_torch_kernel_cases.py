@@ -48,7 +48,8 @@ __all__ = ["FLAG_SETS", "make_case", "step_args", "states_agree",
            "tol", "FLASH_CASES", "FLASH_LONG", "FLASH_BENCH", "FLASH_TC_CASES",
            "FLASH_ROW_TOL", "row_rel_err", "make_flash_case",
            "flash_tensors", "WKV_CASES", "WKV_BENCH", "make_wkv_case",
-           "wkv_tensors", "wkv_err", "PAGED_BENCH"]
+           "wkv_tensors", "wkv_err", "PAGED_BENCH", "WKV_TC_CASES",
+           "WKV_ROW_TOL", "WKV_DECAYS", "wkv_decay"]
 
 US = 1e-6
 
@@ -548,25 +549,80 @@ def flash_tensors(c: dict, device="cpu", head_major: bool = True):
     return tuple(out)
 
 
-def make_wkv_case(case, seed: int = 0) -> dict:
+#: (B, S, H, D, chunk, dtype, log_w dtype) for the tensor-core instance
+#: (``chunk_tc_bf16``): both head_dims, log_w in bfloat16 and float32, S of
+#: 1 and 17 (one ragged chunk of 32), 40 (a full chunk and a ragged one), 96
+#: (three chunks) and 4096 (128, the bench's length) at a narrow B * H; B > 1
+#: with a ragged S, where rows past S of batch b would be batch b + 1's; and
+#: callers' chunks of 1 to 96 (the kernel's own chunk is 32 whatever they
+#: say).
+WKV_TC_CASES = [
+    (2, 1, 2, 64, 64, "bfloat16", "float32"),
+    (3, 17, 2, 64, 17, "bfloat16", "float32"),
+    (1, 17, 3, 32, 1, "bfloat16", "bfloat16"),
+    (2, 40, 2, 32, 8, "bfloat16", "float32"),
+    (2, 96, 2, 64, 32, "bfloat16", "bfloat16"),
+    (1, 96, 2, 32, 96, "bfloat16", "float32"),
+    (1, 4096, 2, 64, 64, "bfloat16", "float32"),
+    (1, 4096, 1, 32, 64, "bfloat16", "bfloat16"),
+]
+
+#: wkv6 outputs of the tensor-core instance against the sequential float32
+#: recurrence: the largest error of one (b, t, h) row relative to the row,
+#: ``||got - want|| / ||want||`` over its D values (:func:`row_rel_err`).
+#: The output is rounded to bfloat16 (at most 2^-8 of a value: 0.0039 a
+#: row), and the two products that read the float32 state take it as a
+#: bfloat16 operand (about 2^-9 relative an element, averaged over D terms
+#: of either sign); 1e-2 leaves room for both.  Beside the scaled 3e-2,
+#: which is measured against the largest output of the whole call and so
+#: passes a row that is wrong by tens of percent wherever outputs are small
+#: (early steps, strong decays).
+WKV_ROW_TOL = 1e-2
+
+#: log_w patterns of the strong-decay checks (``make_wkv_case(...,
+#: decay=...)``): every step and channel at ``-exp(2.5)`` (w = 5e-6: a
+#: product of eight such steps is below float32's smallest normal), and
+#: channels alternating between -1e-4 (w ~ 1: the state only grows) and -12
+def wkv_decay(name: str, shape) -> np.ndarray:
+    """``log_w`` of shape ``(B, S, H, D)`` for a named decay pattern."""
+    if name == "strong":
+        return np.full(shape, -np.exp(2.5), np.float32)
+    if name == "mixed":
+        per_d = np.where(np.arange(shape[-1]) % 2 == 0, -1e-4, -12.0)
+        return np.broadcast_to(per_d.astype(np.float32), shape).copy()
+    raise ValueError(f"unknown decay pattern {name!r}")
+
+
+WKV_DECAYS = ("strong", "mixed")
+
+
+def make_wkv_case(case, seed: int = 0, decay: str | None = None) -> dict:
     """Numpy inputs of one wkv6 check, scaled as the reference's test:
-    r, k, v standard normal x 0.5, ``log_w = -exp(0.5 N)``, u = 0.3 N."""
-    B, S, H, D, chunk, dtype = case
+    r, k, v standard normal x 0.5, ``log_w = -exp(0.5 N)`` (or the named
+    ``decay`` pattern of :func:`wkv_decay`), u = 0.3 N.  A case is ``(B, S,
+    H, D, chunk, dtype)`` (log_w float32) or has log_w's dtype seventh."""
+    B, S, H, D, chunk, dtype = case[:6]
+    w_dtype = case[6] if len(case) > 6 else "float32"
     rng = np.random.default_rng(seed)
     r, k, v = (rng.standard_normal((B, S, H, D)).astype(np.float32) * 0.5
                for _ in range(3))
     lw = -np.exp(rng.standard_normal((B, S, H, D)).astype(np.float32) * 0.5)
+    if decay is not None:
+        lw = wkv_decay(decay, (B, S, H, D))
     u = rng.standard_normal((H, D)).astype(np.float32) * 0.3
-    return dict(dtype=dtype, chunk=chunk, r=r, k=k, v=v, log_w=lw, u=u)
+    return dict(dtype=dtype, w_dtype=w_dtype, chunk=chunk, r=r, k=k, v=v,
+                log_w=lw, u=u)
 
 
 def wkv_tensors(c: dict, device="cpu"):
     """``(r, k, v, log_w, u)`` on ``device``: r, k, v in the case's dtype,
-    log_w and u in float32 (as the reference's test leaves them)."""
+    log_w in its own (float32 unless the case says otherwise, as the
+    reference's test leaves it) and u in float32."""
     dt = getattr(torch, c["dtype"])
     f = [torch.from_numpy(c[n]).to(device=device, dtype=dt)
          for n in ("r", "k", "v")]
-    return (*f, torch.from_numpy(c["log_w"]).to(device),
+    wt = getattr(torch, c.get("w_dtype", "float32"))
+    return (*f, torch.from_numpy(c["log_w"]).to(device=device, dtype=wt),
             torch.from_numpy(c["u"]).to(device))
 
 

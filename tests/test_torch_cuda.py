@@ -2,7 +2,8 @@
 the scheduler kernels bit-equal to their plain versions, paged decode
 attention within ``PAGED_TOL`` of its plain version, a small serving run
 through the paged kernel, and flash attention and wkv6 within the
-reference's tolerance of their plain versions.
+reference's tolerance of their plain versions (and, in bf16, of each row's
+norm).
 
 They import the port only (no jax), so they run on the GPU machine with::
 
@@ -349,18 +350,48 @@ def test_flash_kernel_takes_strided_head_major_views(cuda):
     assert float((got - want).abs().max()) <= cases.tol("float32")
 
 
+def _wkv_case_holds(args, chunk, dtype):
+    """One wkv6 call against the plain version: one launch of the instance
+    of its dtype, the scaled tolerance and ``WKV_ROW_TOL`` of each row,
+    finite, and the same bits again and with the caller's chunk 1."""
+    before = dict(wk.wkv6.launches_by_instance)
+    got = kops.wkv6(*args, chunk=chunk)
+    want = wkv6_ref(*args)
+    torch.cuda.synchronize()
+    inst = wk.instance_for(getattr(torch, dtype))
+    assert wk.wkv6.launches_by_instance == {
+        **before, inst: before[inst] + 1}
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    assert cases.wkv_err(got, want) <= cases.tol(dtype)
+    assert cases.row_rel_err(got, want) <= cases.WKV_ROW_TOL
+    assert torch.equal(kops.wkv6(*args, chunk=chunk), got)
+    assert torch.equal(kops.wkv6(*args, chunk=1), got)
+
+
 @pytest.mark.parametrize("case", cases.WKV_CASES,
                          ids=[f"wkv-{i}" for i in range(4)])
 def test_wkv6_kernel_matches_plain_version(cuda, case):
     c = cases.make_wkv_case(case, seed=0)
-    args = cases.wkv_tensors(c, cuda)
-    before = wk.wkv6.launches
-    got = kops.wkv6(*args, chunk=c["chunk"])
-    want = wkv6_ref(*args)
-    torch.cuda.synchronize()
-    assert wk.wkv6.launches == before + 1
-    assert got.dtype == want.dtype and got.shape == want.shape
-    assert cases.wkv_err(got, want) <= cases.tol(c["dtype"])
+    _wkv_case_holds(cases.wkv_tensors(c, cuda), c["chunk"], c["dtype"])
+
+
+@pytest.mark.parametrize("case", cases.WKV_TC_CASES,
+                         ids=[f"tc-{i}" for i in
+                              range(len(cases.WKV_TC_CASES))])
+def test_wkv6_tensor_core_instance_matches_plain_version(cuda, case):
+    """Both head_dims, log_w in bf16 and float32, ragged S, B > 1, long S,
+    callers' chunks of 1 to 96: ``chunk_tc_bf16``."""
+    c = cases.make_wkv_case(case, seed=0)
+    _wkv_case_holds(cases.wkv_tensors(c, cuda), c["chunk"], c["dtype"])
+
+
+@pytest.mark.parametrize("decay", cases.WKV_DECAYS)
+@pytest.mark.parametrize("w_dtype", ["float32", "bfloat16"])
+def test_wkv6_tensor_core_instance_under_strong_decays(cuda, decay, w_dtype):
+    c = cases.make_wkv_case((2, 1024, 2, 64, 32, "bfloat16", w_dtype),
+                            seed=1, decay=decay)
+    _wkv_case_holds(cases.wkv_tensors(c, cuda), c["chunk"], c["dtype"])
 
 
 def test_flash_and_wkv6_kernels_refuse_what_they_do_not_take(cuda):
@@ -374,3 +405,6 @@ def test_flash_and_wkv6_kernels_refuse_what_they_do_not_take(cuda):
     r, kk, vv, lw, u = cases.wkv_tensors(w, cuda)
     with pytest.raises(ValueError, match="chunk multiple"):
         wk.wkv6(r[:, :60], kk[:, :60], vv[:, :60], lw[:, :60], u, chunk=16)
+    z = torch.zeros(1, 8, 2, 48, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="not taken by chunk_tc_bf16"):
+        wk.wkv6(z, z, z, z.float(), torch.zeros(2, 48, device=cuda))
