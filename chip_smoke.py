@@ -14,6 +14,12 @@ and drives the port's paths, each in a counted window of its own:
     size, checked against the host interpreter loop;
   * the plain-step path (which launches the standalone token-clock kernel)
     on one cohort of the same grid;
+  * the sharded fleet: the same scenario and grid on a 4-node cluster (one
+    grid a node through the fused kernel), checked against the host loop's
+    fleet and the trivial 1-node fleet against the plain sweep; the torch
+    cluster bench (``benchmarks.cluster_bench_torch``) at full size beside
+    the host loop; and the conformance harness (the checked-in corpus and
+    a fixed range of fuzz seeds, every check);
   * serving: ``ServeEngine`` with qwen2.5-3b at full width (weights drawn on
     the card from ``--seed``) answering 8 requests, every decode step's
     attention through the paged CUDA kernel, two of the requests checked
@@ -51,6 +57,9 @@ if not torch.cuda.is_available():
 import torch.nn.functional as F
 
 from repro_torch.configs import ARCHS
+from repro_torch.core import conformance
+from repro_torch.core.cluster import sweep_cluster
+from repro_torch.core.conformance import grid_tol, tail_tol
 from repro_torch.core.engines import run_trace
 from repro_torch.core.experiment import Experiment, RunOptions, Scenario
 from repro_torch.core.sim import generate_arrivals, simulate_compiled
@@ -67,6 +76,7 @@ from repro_torch.models import layers
 from repro_torch.models import transformer as tf
 from repro_torch.serve.engine import Request, ServeEngine
 
+from benchmarks import cluster_bench_torch as cbench
 from benchmarks import kernels_bench_torch as kbench
 from benchmarks import sched_split_torch as ssplit
 from benchmarks.kernels_bench_torch import card_state, cuda_ms
@@ -538,7 +548,7 @@ def phase_agreement(sc, art):
     the card too."""
     tr = art.trace_result.trace
     cfg = sc.sim_config()
-    tol = rt.grid_tol(sc.n_ops)
+    tol = grid_tol(sc.n_ops)
     lats_s = sc.latencies_sec()
     cells = []
     worst = 0.0
@@ -599,6 +609,330 @@ def phase_agreement(sc, art):
                     "p50_rel_vs_host_loop": rel50,
                     "p99_rel_vs_host_loop": rel99,
                     "p50_tol": 0.10, "p99_tol": 0.25})
+
+
+# -- the sharded fleet and the conformance harness -----------------------------
+
+#: The fleet of ``tests/test_cluster.py``'s ``FLEET``: 4 nodes behind a
+#: 5 us router hop, hash partition, replication 2 with spread reads.
+FLEET = {"n_nodes": 4, "partition": "hash", "L_route_us": 5.0,
+         "replication": 2, "replica_policy": "spread"}
+#: Conformance on the card: the checked-in corpus, then this fixed range of
+#: fuzz seeds, every check (about a minute on an H100: the kernel check's
+#: plain step takes most of it).
+FUZZ_SEEDS = range(0, 6)
+
+
+class NodeGrids:
+    """Records every ``sweep_grid`` call of a fleet run (one a node): its
+    config, host wall seconds, ``fused_steps`` launches and the result.
+    Installed over ``replay_torch.sweep_grid`` while a window runs."""
+
+    def __init__(self):
+        self.calls = []
+        self._real = rt.sweep_grid
+
+    def __enter__(self):
+        def record(cfg, trace, *a, **kw):
+            before = sk.fused_steps.launches
+            t0 = time.perf_counter()
+            g = self._real(cfg, trace, *a, **kw)
+            torch.cuda.synchronize()
+            self.calls.append(dict(
+                cfg=cfg, wall_s=time.perf_counter() - t0, grid=g,
+                launches=sk.fused_steps.launches - before))
+            return g
+        rt.sweep_grid = record
+        return self
+
+    def __exit__(self, *exc):
+        rt.sweep_grid = self._real
+
+
+def fleet_kernel_ms(sc):
+    """Device ms of the scheduler kernel and of everything on the card in
+    one more fleet run, and its wall seconds (``torch.profiler``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        Experiment(sc).run()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    kern_ms = busy_ms = 0.0
+    for ev in p.key_averages():
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            continue
+        ms = getattr(ev, "self_device_time_total", 0.0) / 1e3
+        busy_ms += ms
+        if "sched_step_kernel" in ev.key:
+            kern_ms += ms
+    return kern_ms, busy_ms, wall_s
+
+
+def _rows_equal(a, b):
+    return all(x.per_thread == y.per_thread and x.n_threads == y.n_threads
+               and x.throughput == y.throughput and x.nodes == y.nodes
+               for x, y in zip(a.rows, b.rows)) and len(a.rows) == len(b.rows)
+
+
+def phase_cluster_path(art_main):
+    """The sharded fleet at full size, nothing cut: the main path's scenario
+    and axes (128 latencies x threads 8/16/32/64) on the 4-node ``FLEET``,
+    4 x 512 node-cells, through ``Experiment.run`` with default options
+    (backend torch, device cuda): one ``sweep_grid`` a node.  Warm-up, then
+    a counted run; the counts are set to 0 just before it and read just
+    after."""
+    sc = scenario(N_LATS, CANDS, cluster=dict(FLEET))
+    t0 = time.perf_counter()
+    warm = Experiment(sc).run()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with NodeGrids() as nodes:
+        t0 = time.perf_counter()
+        art = Experiment(sc).run()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    calls = nodes.calls
+    if launches["fused_steps"] <= 0:
+        fail("kernel fused_steps was not launched on the cluster path")
+    if launches["token_clock_update"] != 0:
+        fail("the cluster path launched the standalone token-clock kernel")
+    n_active = sum(1 for n in art.rows[0].nodes if n["n_ops"])
+    if len(calls) != n_active:
+        fail(f"{len(calls)} node grids for {n_active} active nodes")
+    max_launches = sum(c["grid"].steps // rt._RNG_CHUNK for c in calls)
+    if launches["fused_steps"] > max_launches:
+        fail(f"the cluster path launched fused_steps "
+             f"{launches['fused_steps']} times for node grids of "
+             f"{max_launches} chunks in all")
+    if not _rows_equal(art, warm):
+        fail("two runs of the fleet are not bit-identical")
+    # the fleet is the sum of its nodes, cell by cell
+    for li, row in enumerate(art.rows):
+        for ci, c in enumerate(CANDS):
+            total = sum(float(n["grid"].throughput[li, ci]) for n in calls)
+            if dict(row.per_thread)[c] != total:
+                fail(f"fleet per_thread at L={row.L_us}us, {c} threads is "
+                     f"not the sum of its nodes")
+        if not (math.isfinite(row.throughput) and row.throughput > 0):
+            fail(f"fleet throughput {row.throughput} at L={row.L_us}us")
+        shares = sum(n["share"] for n in row.nodes)
+        if abs(shares - 1.0) > 1e-12 or \
+                sum(n["n_ops"] for n in row.nodes) != sc.n_ops:
+            fail(f"node shares sum to {shares}, node ops to "
+                 f"{sum(n['n_ops'] for n in row.nodes)}")
+
+    # six cells against the host loop's fleet, under the contract's bound
+    contract = conformance.CONTRACTS["cluster-torch-vs-loop"]
+    tol = grid_tol(sc.n_ops, base=contract.throughput_tol,
+                   ref_ops=contract.ref_ops)
+    store, wl = Experiment(sc).build()
+    n_warm = int(len(wl) * sc.warmup_frac)
+    tr, cfg, spec = art.trace_result.trace, sc.sim_config(), sc.cluster_spec()
+    lats_s = sc.latencies_sec()
+    n = len(lats_s)
+    cells, worst = [], 0.0
+    t0 = time.perf_counter()
+    for li, cj in ((0, 0), (n // 4, 1), (n // 2, 2), (3 * n // 4, 3),
+                   (n - 1, 3), (n - 1, 0)):
+        cand = CANDS[cj % len(CANDS)]
+        (pt,) = sweep_cluster(cfg, tr, wl.keys[n_warm:],
+                              wl.is_write[n_warm:], spec, [lats_s[li]],
+                              [cand], n_ops=sc.n_ops, backend="loop")
+        got, ref = dict(art.rows[li].per_thread)[cand], pt.per_thread[cand]
+        rel = abs(got - ref) / ref
+        worst = max(worst, rel)
+        cells.append({"L_us": sc.latencies_us[li], "threads": cand,
+                      "card": got, "host_loop": ref, "rel": rel})
+    loop_s = time.perf_counter() - t0
+    if worst > tol:
+        fail(f"fleet on the card vs the host loop: worst cell {worst:.4%} "
+             f"> {tol:.4%} (cluster-torch-vs-loop)")
+
+    # trivial-cluster: a 1-node fleet is the main path's single-host sweep
+    triv = Experiment(scenario(N_LATS, CANDS, cluster={"n_nodes": 1})).run()
+    for a, b in zip(triv.rows, art_main.rows):
+        if (a.per_thread != b.per_thread or a.n_threads != b.n_threads
+                or a.throughput != b.throughput):
+            fail(f"the trivial 1-node fleet differs from the plain sweep at "
+                 f"L={a.L_us}us (trivial-cluster)")
+
+    kern_ms, busy_ms, prof_wall_s = fleet_kernel_ms(sc)
+    node_rows = [{"node": k, "seed": c["cfg"].seed,
+                  "n_ops": int(c["grid"].ops), "wall_s": c["wall_s"],
+                  "launches": c["launches"],
+                  "chunks": c["grid"].steps // rt._RNG_CHUNK,
+                  "cell_steps_run": int(c["grid"].cell_steps_run)}
+                 for k, c in enumerate(calls)]
+    grids_s = sum(c["wall_s"] for c in calls)
+    emit("cluster_path", scenario=sc.display_name, cluster=FLEET,
+         node_cells=int(sum(c["grid"].throughput.size for c in calls)),
+         n_latencies=N_LATS, thread_candidates=list(CANDS), n_ops=sc.n_ops,
+         cut="none", warmup_wall_s=warm_s, wall_s=wall_s,
+         node_grids_wall_s=grids_s, host_outside_grids_s=wall_s - grids_s,
+         nodes=node_rows, launches=launches, max_launches=max_launches,
+         peak_device_bytes=int(peak), kernel_ms=kern_ms,
+         device_busy_ms=busy_ms, profiled_wall_s=prof_wall_s,
+         device_idle_share=1.0 - busy_ms / (prof_wall_s * 1e3),
+         shares=[n_["share"] for n_ in art.rows[0].nodes],
+         node_ops=[n_["n_ops"] for n_ in art.rows[0].nodes],
+         best_threads_first_last=[art.rows[0].n_threads,
+                                  art.rows[-1].n_threads],
+         vs_host_loop={"tolerance": tol, "worst_rel": worst, "cells": cells,
+                       "loop_s": loop_s},
+         trivial_cluster_bit_identical=True, bit_identical_runs=True)
+    return launches
+
+
+def _bench_doc_check(doc, path):
+    path.write_text(json.dumps(doc, indent=2) + "\n")
+    res = subprocess.run([sys.executable, str(ROOT / "tools" /
+                                              "check_bench.py"), str(path)],
+                         capture_output=True, text=True, timeout=120)
+    if res.returncode != 0:
+        fail(f"tools/check_bench.py refused {path.name}: "
+             f"{res.stdout}{res.stderr}")
+    return res.stdout.strip().splitlines()
+
+
+def phase_cluster_bench():
+    """``benchmarks/cluster_bench_torch.py`` at ``FULL_SIZE`` on the card
+    (its four scenarios: a capacity probe, then Poisson at 0.7 of it with
+    percentiles), validated by ``tools/check_bench.py``; then the host loop
+    on the same scenarios, offered the same loads.  Probed capacity and
+    open-loop fleet throughput (the sum of the node rates) are held to
+    ``cluster-torch-vs-loop``, node
+    shares must be identical; p50 / p99 are printed beside the contract's
+    tail bound (a miss is printed with its figure, not hidden)."""
+    reset_counts()
+    with NodeGrids() as nodes:
+        t0 = time.perf_counter()
+        doc = cbench.run(sorted(cbench.SCENARIOS), False, "torch", DEV)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    launches = counts()
+    if launches["fused_steps"] <= 0 or launches["token_clock_update"]:
+        fail(f"cluster_bench launches: {launches}")
+    # degraded_node runs twice (probe, open loop): each time the grid of
+    # node 1 (seed + 1) is the only one stepped with has_degrade
+    flags = [rt._make_flags(c["cfg"])["has_degrade"] for c in nodes.calls]
+    seed1 = cbench.SCENARIOS["degraded_node"](False).seed + 1
+    if sum(flags) != 2 or any(c["cfg"].seed != seed1 for c, f in
+                              zip(nodes.calls, flags) if f):
+        fail(f"degraded_node: has_degrade on {sum(flags)} node grids, not "
+             f"node 1's twice")
+    checked = _bench_doc_check(doc, OUT_DIR / "cluster_bench_torch.json")
+    offer_of = {k: v["capacity"] for k, v in doc["summary"].items()}
+    t0 = time.perf_counter()
+    loop = cbench.run(sorted(cbench.SCENARIOS), False, "loop",
+                      offer_of=offer_of)
+    loop_s = time.perf_counter() - t0
+    _bench_doc_check(loop, OUT_DIR / "cluster_bench_loop.json")
+
+    contract = conformance.CONTRACTS["cluster-torch-vs-loop"]
+    n_ops = cbench.FULL_SIZE["n_ops"]
+    thr_tol = grid_tol(n_ops, base=contract.throughput_tol,
+                       ref_ops=contract.ref_ops)
+    tails = {f: tail_tol(n_ops, base=getattr(contract, f"{f}_tol"),
+                         ref_ops=contract.tail_ref_ops)
+             for f in ("p50", "p99")}
+    rows, tail_misses = [], []
+    for name in sorted(cbench.SCENARIOS):
+        cap_t = doc["summary"][name]["capacity"]
+        cap_l = loop["summary"][name]["capacity"]
+        rel = abs(cap_t - cap_l) / cap_l
+        if rel > thr_tol:
+            fail(f"{name}: probed fleet capacity {cap_t} vs host loop "
+                 f"{cap_l} ({rel:.4%} > {thr_tol:.4%})")
+        for et, el in zip((e for e in doc["entries"] if e["name"] == name),
+                          (e for e in loop["entries"] if e["name"] == name)):
+            if [n_["share"] for n_ in et["nodes"]] != \
+                    [n_["share"] for n_ in el["nodes"]]:
+                fail(f"{name} L={et['L_us']}us: node shares differ from the "
+                     f"host loop's")
+            # the contract's fleet throughput: the sum of the node rates
+            # (the bench's achieved_load, ops over the slowest node's
+            # window, is printed beside it)
+            thr_t = sum(n_["achieved_load"] for n_ in et["nodes"])
+            thr_l = sum(n_["achieved_load"] for n_ in el["nodes"])
+            rel_t = abs(thr_t - thr_l) / thr_l
+            if rel_t > thr_tol:
+                fail(f"{name} L={et['L_us']}us: fleet throughput {thr_t} vs "
+                     f"host loop {thr_l} ({rel_t:.4%} > {thr_tol:.4%})")
+            row = {"name": name, "L_us": et["L_us"],
+                   "n_threads": et["n_threads"],
+                   "offered_load": et["offered_load"],
+                   "fleet_throughput_card": thr_t,
+                   "fleet_throughput_loop": thr_l, "throughput_rel": rel_t,
+                   "achieved_card": et["achieved_load"],
+                   "achieved_loop": el["achieved_load"],
+                   "achieved_rel": abs(et["achieved_load"]
+                                       - el["achieved_load"])
+                   / el["achieved_load"]}
+            for f in ("p50", "p99"):
+                a, b = el[f"{f}_us"], et[f"{f}_us"]
+                r = abs(a - b) / max(a, b)
+                row.update({f"{f}_card_us": b, f"{f}_loop_us": a,
+                            f"{f}_rel": r, f"{f}_within": r <= tails[f]})
+                if r > tails[f]:
+                    tail_misses.append(f"{name} L={et['L_us']}us {f}: card "
+                                       f"{b} vs loop {a}, rel {r:.3f} > "
+                                       f"{tails[f]:.3f}")
+            rows.append(row)
+        rows[-1]["capacity_card"], rows[-1]["capacity_loop"] = cap_t, cap_l
+    emit("cluster_bench", wall_s=wall_s, loop_wall_s=loop_s,
+         launches=launches, node_grids=len(nodes.calls),
+         scenario_wall_s={k: v["wall_s"] for k, v in doc["summary"].items()},
+         check_bench=checked, throughput_tol=thr_tol, tail_tol=tails,
+         rows=rows, tail_misses=tail_misses,
+         tail_note="a tail miss is printed with its figure and filed in "
+                   "ROADMAP Queue C beside C11; the bound is not widened")
+    return launches
+
+
+def phase_conformance():
+    """The conformance harness on the card: the checked-in corpus
+    (``examples/conformance/``) through every check (``compiled``,
+    ``torch``, ``kernel``), then fuzz seeds ``FUZZ_SEEDS``, every check.
+    Any failure is fatal, save the corpus's one recorded contract miss
+    (``_torch_kernel_cases.CORPUS_KNOWN_MISSES``, ROADMAP C14), which must
+    recur with its exact figure."""
+    corpus = ROOT / "examples" / "conformance"
+    reset_counts()
+    t0 = time.perf_counter()
+    fails = conformance.replay_corpus(corpus, device=DEV, verbose=True)
+    corpus_s = time.perf_counter() - t0
+    new, gone = cases.unexpected_failures(fails)
+    if new or gone:
+        fail(f"conformance corpus on the card: failures not on record "
+             f"{[str(f) for f in new]}, records that did not recur {gone}")
+    fuzz_fails, seed_s = [], {}
+    for seed in FUZZ_SEEDS:
+        t0 = time.perf_counter()
+        fuzz_fails += conformance.fuzz(
+            1, seed, shrink=False, device=DEV, verbose=True,
+            failures_dir=OUT_DIR / "conformance_failures")
+        seed_s[seed] = time.perf_counter() - t0
+    fuzz_s = sum(seed_s.values())
+    if fuzz_fails:
+        fail(f"conformance fuzz on the card: {[str(f) for f in fuzz_fails]}")
+    launches = counts()
+    if launches["fused_steps"] <= 0:
+        fail("the conformance phase launched no fused_steps")
+    emit("conformance", corpus=sorted(p.name for p in corpus.glob("*.json")),
+         checks=list(conformance.CHECK_NAMES), corpus_s=corpus_s,
+         corpus_failures=[str(f) for f in fails],
+         corpus_failures_on_record="ROADMAP C14", fuzz_seeds=[
+             FUZZ_SEEDS.start, FUZZ_SEEDS.stop], fuzz_s=fuzz_s,
+         fuzz_seed_s=seed_s,
+         fuzz_failures=0, launches=launches)
 
 
 def gathered_rows(cohorts, ci_before, ci_after):
@@ -1468,6 +1802,9 @@ def main():
     sc, art, launches = phase_main_path()
     plain_launches = phase_plain_step_path(art)
     phase_agreement(sc, art)
+    cluster_launches = phase_cluster_path(art)
+    phase_cluster_bench()
+    phase_conformance()
     cohorts, us = plan_main(sc, art)
     floor_ms, split = phase_sched_split(cohorts, us)
     group, err_main = phase_timing(cohorts, us, floor_ms)
@@ -1477,11 +1814,13 @@ def main():
     tok["launches"] = plain_launches["token_clock_update"]
     tok["path"] = "plain_step_path"
     tok["launches_main_path"] = launches["token_clock_update"]
+    tok["launches_cluster_path"] = cluster_launches["token_clock_update"]
     fused = dict(
         name="sched_step.fused_steps", route="cuda",
         source="src/repro_torch/kernels/csrc/sched_step.cu",
         replaces="src/repro/kernels/sched_step.py:622",
         launches=launches["fused_steps"], path="main_path",
+        launches_cluster_path=cluster_launches["fused_steps"],
         max_abs_err=max(err_fused, err_main),
         ms=float(np.mean(group["ms"])), ms_turns=group["ms"],
         us_per_step=group["us_per_step"], plain_ms=group["plain_ms"],

@@ -17,11 +17,16 @@
     declarative :class:`~repro_torch.core.experiment.Scenario` specs
     executed by :class:`~repro_torch.core.experiment.Experiment` into
     serializable :class:`~repro_torch.core.experiment.RunArtifact` tables
+  * :mod:`repro_torch.core.cluster`      -- sharded fleets behind a router,
+    one device grid per node
+  * :mod:`repro_torch.core.conformance`  -- the backend contract table and
+    the differential fuzzer that enforces it
 
-Cluster sweeps, the conformance fuzzer and the legacy shims of the
-reference are not part of the port yet (``ROADMAP.md``).
+``repro_torch.core.kvstore`` and ``repro_torch.core.simulator`` remain as
+deprecation shims over the engines and sim packages.
 """
 from . import (  # noqa: F401
+    cluster,
     engines,
     experiment,
     latency_model,
@@ -31,6 +36,20 @@ from . import (  # noqa: F401
     trace_ir,
     workloads,
 )
+
+
+def __getattr__(name):
+    # Legacy attribute access (`repro_torch.core.kvstore` /
+    # `repro_torch.core.simulator` after `import repro_torch.core`) keeps
+    # working: resolve the deprecation shims lazily so their
+    # DeprecationWarning only fires on actual use.
+    if name in ("kvstore", "simulator", "conformance"):
+        # conformance resolves lazily too, so `python -m
+        # repro_torch.core.conformance` doesn't re-import its own main module.
+        import importlib
+
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 from .latency_model import (  # noqa: F401
     OpParams,
     SystemParams,
@@ -59,4 +78,8 @@ from .experiment import (  # noqa: F401
     Scenario,
     default_scenario,
     run_scenario,
+)
+from .cluster import (  # noqa: F401
+    ClusterSpec,
+    sweep_cluster,
 )

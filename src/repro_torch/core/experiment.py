@@ -140,7 +140,7 @@ class Scenario:
     # sharded fleet: a ClusterSpec.to_dict() (empty = single host).  The
     # scenario's device fields describe each *node*; ``cluster`` adds the
     # fleet shape on top (node count, partitioning, route hop, per-node
-    # overrides).  Kept for schema compatibility; running it raises.
+    # overrides) -- see repro_torch.core.cluster.
     cluster: dict = field(default_factory=dict)
     name: str = ""
 
@@ -150,6 +150,9 @@ class Scenario:
             object.__setattr__(self, f, _norm(getattr(self, f)))
         if self.arrival:
             ArrivalSpec.from_dict(dict(self.arrival))   # validate eagerly
+        if self.cluster:
+            from .cluster import ClusterSpec
+            ClusterSpec.from_dict(dict(self.cluster))   # validate eagerly
         if not self.latencies_us or not self.thread_candidates:
             raise ValueError(
                 "Scenario sweep axes must be non-empty "
@@ -211,16 +214,12 @@ class Scenario:
                 if self.arrival else None)
 
     def cluster_spec(self):
-        """``None`` for the plain single-host path.  Sharded fleets are not
-        part of the port yet: a scenario with ``cluster`` set keeps the
-        field (so specs and artifacts of both packages stay interchangeable)
-        but cannot be run."""
+        """The :class:`~repro_torch.core.cluster.ClusterSpec`, or ``None``
+        for the plain single-host path."""
         if not self.cluster:
             return None
-        raise NotImplementedError(
-            "cluster scenarios are not ported to repro_torch yet "
-            "(ROADMAP.md, port queue A6: core/cluster.py); run them "
-            "through the reference package")
+        from .cluster import ClusterSpec
+        return ClusterSpec.from_dict(dict(self.cluster))
 
     # -- serialization -------------------------------------------------------
 
@@ -473,15 +472,29 @@ class Experiment:
         p = tr.op_params(store.times, P=s.P, T_sw=s.T_sw_us * US)
         cfg = s.sim_config()
         arrival = s.arrival_spec()
-        s.cluster_spec()      # raises for fleets: not ported yet
-        pts = sweep_latency(
-            cfg, tr.trace, s.latencies_sec(), s.thread_candidates,
-            n_ops=s.n_ops, processes=o.processes, cache_dir=o.cache_dir,
-            collect_latency=o.collect_latency, adaptive=o.adaptive,
-            backend=o.backend, device=o.device, use_kernel=o.use_kernel,
-            substeps=o.substeps,
-            arrival=arrival, collect_percentiles=o.collect_percentiles,
-        )
+        cl = s.cluster_spec()
+        if cl is not None:
+            from .cluster import sweep_cluster
+            # Trace ops carry no keys; the partitioner needs them, and the
+            # post-warmup workload slice aligns 1:1 with the trace ops.
+            n_warm = int(len(wl) * s.warmup_frac)
+            pts = sweep_cluster(
+                cfg, tr.trace, wl.keys[n_warm:], wl.is_write[n_warm:], cl,
+                s.latencies_sec(), s.thread_candidates, n_ops=s.n_ops,
+                backend=o.backend, collect_latency=o.collect_latency,
+                collect_percentiles=o.collect_percentiles, arrival=arrival,
+                device=o.device, use_kernel=o.use_kernel,
+                substeps=o.substeps,
+            )
+        else:
+            pts = sweep_latency(
+                cfg, tr.trace, s.latencies_sec(), s.thread_candidates,
+                n_ops=s.n_ops, processes=o.processes, cache_dir=o.cache_dir,
+                collect_latency=o.collect_latency, adaptive=o.adaptive,
+                backend=o.backend, device=o.device, use_kernel=o.use_kernel,
+                substeps=o.substeps,
+                arrival=arrival, collect_percentiles=o.collect_percentiles,
+            )
         # Eq. 14 outer IO caps for the model column, matching the scenario's
         # declared device pool (aggregate over the n_ssd per-device rates;
         # 0 disables a cap, like in the simulator).
@@ -490,8 +503,25 @@ class Experiment:
             cap_inv = max(cap_inv, p.S / (s.n_ssd * s.R_io))
         if s.B_io > 0:
             cap_inv = max(cap_inv, p.S * cfg.A_io / (s.n_ssd * s.B_io))
+        # Cluster fleet model: the hottest shard saturates first, so the
+        # fleet tops out at min over nodes of C_k / w_k (node capacity
+        # from Eq. 14 with its own device overrides, over its op share).
+        shares = None
+        if cl is not None and pts:
+            shares = []
+            for nc in pts[0].nodes:
+                if nc.share <= 0.0:
+                    continue
+                ncfg = cl.node_config(cfg, nc.node)
+                ci = 0.0
+                if ncfg.R_io > 0:
+                    ci = max(ci, p.S / (ncfg.n_ssd * ncfg.R_io))
+                if ncfg.B_io > 0:
+                    ci = max(ci, p.S * ncfg.A_io / (ncfg.n_ssd * ncfg.B_io))
+                shares.append((nc.share, ci))
         rows = tuple(
-            _make_row(l_us, pt, p, cap_inv, o.collect_latency, arrival)
+            _make_row(l_us, pt, p, cap_inv, o.collect_latency, arrival,
+                      shares=shares, nodes=_node_dicts(pt, arrival))
             for l_us, pt in zip(s.latencies_us, pts)
         )
         wname, _ = s.resolved_workload()
@@ -543,15 +573,42 @@ def _tail_dict(pt: SweepPoint, arrival: ArrivalSpec | None) -> dict | None:
         pt.throughput)
 
 
+def _node_dicts(pt: SweepPoint,
+                arrival: ArrivalSpec | None) -> tuple | None:
+    """Per-node breakdown of a cluster point as JSON-friendly dicts (a
+    node's offered load is the fleet offered rate times its op share)."""
+    nodes = getattr(pt, "nodes", None)
+    if not nodes:
+        return None
+    out = []
+    for nc in nodes:
+        offered = (float(arrival.offered_rate) * nc.share
+                   if arrival is not None else None)
+        out.append({
+            "node": int(nc.node),
+            "share": float(nc.share),
+            "n_ops": int(nc.n_ops),
+            "throughput": float(nc.throughput),
+            "time": float(nc.time),
+            "tail": _summary_tail(nc.summary, offered, nc.throughput),
+        })
+    return tuple(out)
+
+
 def _make_row(l_us, pt: SweepPoint, p: OpParams, cap_inv: float,
-              collected: bool,
-              arrival: ArrivalSpec | None = None) -> SweepRow:
+              collected: bool, arrival: ArrivalSpec | None = None,
+              shares=None, nodes=None) -> SweepRow:
     # Mixtures are fed to the closed-form model as their expected latency
     # (the model takes a scalar L; the simulator samples the real mixture).
     # cap_inv is the Eq. 14 device-cap floor on reciprocal throughput, so
     # IOPS/bandwidth-capped scenarios get a model the sim can actually meet.
+    # shares (cluster runs) replaces it with the hottest-shard bound
+    # min_k C_k / w_k over (op share, per-node cap floor) pairs.
     rev = float(theta_prob_inv(np.array([_expected_us(l_us) * US]), p)[0])
-    model = 1.0 / max(rev, cap_inv)
+    if shares is None:
+        model = 1.0 / max(rev, cap_inv)
+    else:
+        model = min((1.0 / max(rev, ci)) / w for w, ci in shares)
     return SweepRow(
         L_us=l_us,
         n_threads=pt.n_threads,
@@ -561,6 +618,7 @@ def _make_row(l_us, pt: SweepPoint, p: OpParams, cap_inv: float,
         mean_op_latency_us=(
             float(pt.result.mean_op_latency / US) if collected else None),
         tail=_tail_dict(pt, arrival),
+        nodes=nodes,
     )
 
 

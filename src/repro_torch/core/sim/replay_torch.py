@@ -33,7 +33,8 @@ backends; the RNG streams do not (a counter-based splitmix64 generator here,
 the stdlib Mersenne twister there), and simultaneous-ready ties can resolve
 in a different order.  Per-cell throughput therefore agrees with the loop
 backends to sampling noise rather than bit-identically: within
-``1% * max(1, sqrt(20000 / n_ops))`` per cell.  Fed the *same* uniforms
+``1% * max(1, sqrt(20000 / n_ops))`` per cell, the ``torch-vs-loop``
+contract (:func:`repro_torch.core.conformance.grid_tol`).  Fed the *same* uniforms
 (``draws=``), the grid is bit-identical to the reference's ``sweep_grid``.
 A cell's numbers are a pure function of ``(cfg.seed, crc32(pack("<dq", L,
 n)))`` -- never of grid composition, padding or cohort -- and the generator
@@ -66,7 +67,7 @@ from .config import SimConfig, SimResult
 __all__ = ["TraceArrays", "GridResult", "sweep_grid", "lower_trace",
            "SplitMixDraws", "init_state", "state_from_numpy",
            "state_to_numpy", "resolve_device", "Cohort", "plan_grid",
-           "cohort_uniforms", "grid_tol", "GRID_TOL", "GRID_REF_OPS"]
+           "cohort_uniforms"]
 
 _STEP_BUCKET = 4096     # step bounds round up to this
 _PAD_SENTINEL = CPU     # padded suboperations are inert plain-CPU entries
@@ -491,22 +492,6 @@ def init_state(ta: TraceArrays, L_mem_g, nthr_g, warm_g, arr, u_cursor,
 
 
 # -- the grid ------------------------------------------------------------------
-
-#: The grid-vs-loop relative throughput bound, documented at
-#: :data:`GRID_REF_OPS` measured ops per cell.
-GRID_TOL = 0.01
-GRID_REF_OPS = 20_000
-
-
-def grid_tol(n_ops: int, *, slack: float = 1.0) -> float:
-    """The grid-vs-loop relative throughput bound at a given cell size.
-
-    Sampling noise between the two RNG streams scales like
-    ``1/sqrt(n_ops)``, so the bound documented at :data:`GRID_REF_OPS`
-    widens by ``sqrt(GRID_REF_OPS / n_ops)`` for smaller cells (and never
-    tightens below :data:`GRID_TOL` for larger ones)."""
-    return slack * GRID_TOL * max(1.0, (GRID_REF_OPS / max(n_ops, 1)) ** 0.5)
-
 
 def _as_f64(x, dev) -> torch.Tensor:
     """Draws as a contiguous float64 tensor on ``dev`` (a ``draws`` source

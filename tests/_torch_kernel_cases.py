@@ -632,3 +632,32 @@ def wkv_err(got, want) -> float:
     g, w = got.float(), want.float()
     scale = float(w.abs().max()) + 1e-6
     return float((g / scale - w / scale).abs().max())
+
+
+# -- conformance ---------------------------------------------------------------
+
+#: The failures of ``replay_corpus(examples/conformance)`` on the port's own
+#: random streams, each as ``(scenario name, check, contract, message)``,
+#: bit for bit the same on the CPU and on the card (the streams are integer
+#: arithmetic, the kernel is bit-equal to the plain step).  One, filed as
+#: ROADMAP C14: the corpus's bursty 3-node fleet at 400 ops, whose fleet p99
+#: is the fifth-largest of 400 sojourns and lands on either side of a gap in
+#: the burst tail; with the scenario's seed set to 9 the reference's own jax
+#: fleet misses the same bound and the port's meets it
+#: (``tests/test_torch_conformance.py``), and fed the reference's draws the
+#: port's fleet is bit-equal to the jax fleet (``tests/test_torch_cluster.py``).
+#: The bound is the reference's and stays unchanged: the miss is asserted
+#: with its figure, so a change either way fails.
+CORPUS_KNOWN_MISSES = frozenset({
+    ("fuzz-26", "torch", "cluster-torch-vs-loop",
+     "row 0 (L5us) p99_us: 167 vs 207 (rel 0.239 > 0.212)"),
+})
+
+
+def unexpected_failures(fails) -> tuple[list, set]:
+    """Split conformance failures against :data:`CORPUS_KNOWN_MISSES`:
+    ``(failures not on record, records that did not recur)``."""
+    got = {(f.scenario.name, f.check, f.contract, f.message): f
+           for f in fails}
+    new = [f for key, f in got.items() if key not in CORPUS_KNOWN_MISSES]
+    return new, set(CORPUS_KNOWN_MISSES) - set(got)

@@ -204,3 +204,41 @@ def test_planner_identical():
         assert planner.plan_concurrency(p, getattr(tiering, tier).latency) \
             == ref_planner.plan_concurrency(rp,
                                             getattr(ref_tiering, tier).latency)
+
+
+@pytest.mark.parametrize("shim,home", [("kvstore", "engines"),
+                                       ("simulator", "sim")])
+def test_legacy_shims_warn_and_export_the_references_names(shim, home,
+                                                         monkeypatch):
+    """The deprecation shims are copies up to their module names (which the
+    warning text carries, so they are not held byte for byte): importing
+    one warns, and it exports the reference shim's names, each the port's
+    own object."""
+    import importlib
+    import sys
+    import warnings
+
+    import repro_torch.core as core
+    # a fresh import of the port's shim; the entry (if any) and the
+    # package attribute are put back afterwards
+    monkeypatch.delitem(sys.modules, f"repro_torch.core.{shim}",
+                        raising=False)
+    if shim in vars(core):
+        monkeypatch.setattr(core, shim, vars(core)[shim])
+    with pytest.warns(DeprecationWarning, match=f"repro_torch.core.{shim} "
+                                                "is deprecated"):
+        mod = importlib.import_module(f"repro_torch.core.{shim}")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        ref = importlib.import_module(f"repro.core.{shim}")
+    assert mod.__all__ == ref.__all__
+    target = importlib.import_module(f"repro_torch.core.{home}")
+    public = [n for n in dir(ref) if not n.startswith("_")
+              and n not in ("annotations", "warnings")]
+    for name in public:
+        got = getattr(mod, name)
+        home_mod = getattr(got, "__module__", None)
+        assert home_mod is None or home_mod.startswith("repro_torch."), name
+        if hasattr(target, name):
+            assert got is getattr(target, name), name
+    assert getattr(core, shim) is mod      # lazy attribute access

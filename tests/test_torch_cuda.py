@@ -160,6 +160,63 @@ def test_grid_kernel_path_bit_identical_to_plain_path(cuda, small_trace):
     assert np.array_equal(fused.throughput, cpu.throughput)
 
 
+# -- the fleet and the corpus on the card --------------------------------------
+
+CORPUS = sorted((Path(__file__).resolve().parents[1] / "examples"
+                 / "conformance").glob("*.json"))
+
+
+@pytest.mark.parametrize("path", CORPUS, ids=lambda p: p.stem)
+def test_corpus_kernel_vs_plain_on_the_card(cuda, path):
+    """``torch-kernel-vs-plain`` on every corpus scenario: the fused kernel
+    and the plain step give the same rows (the conformance ``kernel``
+    check, one clipped cell)."""
+    from repro_torch.core import conformance
+
+    sc = Scenario.from_json(path.read_text())
+    fails = conformance.check_scenario(sc, ("kernel",), device=cuda)
+    assert not fails, [str(f) for f in fails]
+
+
+def test_fleet_node_grids_kernel_bit_equal_to_plain_step(cuda, monkeypatch):
+    """A 4-node fleet (hash partition, replication 2 with spread reads, a
+    5 us route hop, a degraded node, Poisson arrivals with a deadline):
+    each node's grid through the fused kernel is bit-equal to its grid
+    through the plain step on the card, node by node."""
+    from repro_torch.core.experiment import RunOptions
+
+    doc = json.loads((Path(__file__).resolve().parents[1] / "examples"
+                      / "scenarios" / "cluster_hot_shard.json").read_text())
+    doc.update(n_ops=300, latencies_us=[1.0, 5.0], thread_candidates=[8, 16],
+               cluster=dict(doc["cluster"], node_overrides={
+                   "2": {"io_degrade": 4.0, "T_degrade_us": 300.0}}))
+    grids = {True: [], False: []}
+    real = rt.sweep_grid
+
+    def record(cfg, trace, *a, use_kernel=None, **kw):
+        g = real(cfg, trace, *a, use_kernel=use_kernel, **kw)
+        grids[use_kernel].append(g)
+        return g
+
+    monkeypatch.setattr(rt, "sweep_grid", record)
+    rows = {}
+    for use_kernel in (True, False):
+        rows[use_kernel] = Experiment(Scenario.from_dict(doc), RunOptions(
+            device=cuda, use_kernel=use_kernel,
+            collect_percentiles=True)).run().rows
+    assert len(grids[True]) == len(grids[False]) == 4
+    for g, p in zip(grids[True], grids[False]):
+        for fld in ("throughput", "time", "mem_stall_total", "mem_accesses",
+                    "lat_max", "missed", "lat_count"):
+            assert np.array_equal(getattr(g, fld), getattr(p, fld)), fld
+        for a, b in zip(g.lat_hist.reshape(-1, g.lat_hist.shape[-1]),
+                        p.lat_hist.reshape(-1, p.lat_hist.shape[-1])):
+            assert cases.hist_equal_or_adjacent(a[None], b[None])
+    for a, b in zip(rows[True], rows[False]):
+        assert a.per_thread == b.per_thread
+        assert [n["share"] for n in a.nodes] == [n["share"] for n in b.nodes]
+
+
 # -- paged decode attention ----------------------------------------------------
 
 PAGED = {f"paged-{i}": c for i, c in enumerate(cases.PAGED_CASES)}

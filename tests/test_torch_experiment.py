@@ -18,9 +18,9 @@ from pathlib import Path
 import pytest
 
 from repro.core import experiment as ref_ex
+from repro_torch.core.conformance import grid_tol
 from repro_torch.core import experiment as ex
 from repro_torch.core.sim import SimConfig, sweep_latency
-from repro_torch.core.sim import replay_torch as rt
 from repro_torch.core.sim import sweep as sweep_mod
 
 from _torch_port_support import US, engine_trace
@@ -72,7 +72,7 @@ def test_loop_backends_bit_identical(artifacts):
 
 def test_grid_rows_within_the_tolerance_law(artifacts):
     port, _, ref_loop, ref_jax = artifacts
-    tol = rt.grid_tol(N_OPS, slack=1.25)
+    tol = grid_tol(N_OPS, slack=1.25)
     for a, b, c in zip(port.rows, ref_loop.rows, ref_jax.rows):
         loop = dict(b.per_thread)
         for n, thr in a.per_thread:

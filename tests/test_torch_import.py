@@ -1,7 +1,8 @@
 """The port stands alone: it imports ``torch`` and numpy, never ``jax``,
 ``jaxlib``, ``ml_dtypes`` or anything of the reference package ``repro`` --
-not on import (the kernel ops and the port's kernel bench included), not
-after a grid run, not after serving a request."""
+not on import (the kernel ops, the conformance harness and the port's
+benches included), not after a grid run, not after a fleet run, not after
+serving a request."""
 import re
 import subprocess
 import sys
@@ -22,13 +23,18 @@ import repro_torch
 import repro_torch.core
 import repro_torch.serve.engine
 import repro_torch.kernels.ops
+import repro_torch.core.conformance
 import benchmarks.kernels_bench_torch
+import benchmarks.cluster_bench_torch
 after_import = foreign()
 from repro_torch.core.experiment import Experiment, RunOptions, Scenario
 doc = json.load(open(sys.argv[1]))
 doc.update(n_keys=1500, n_wl_ops=400, n_ops=100, latencies_us=[1, 5],
            thread_candidates=[4])
 art = Experiment(Scenario.from_dict(doc), RunOptions(device="cpu")).run()
+fleet = dict(doc, n_ops=60, latencies_us=[2], cluster={"n_nodes": 2})
+art_fleet = Experiment(Scenario.from_dict(fleet),
+                       RunOptions(device="cpu")).run()
 after_run = foreign()
 from repro_torch.configs import ARCHS, smoke_config
 from repro_torch.serve.engine import Request, ServeEngine
@@ -40,6 +46,7 @@ served = eng.run()
 print(json.dumps({"after_import": after_import, "after_run": after_run,
                   "after_serve": foreign(),
                   "rows": len(art.rows),
+                  "fleet_nodes": len(art_fleet.rows[0].nodes),
                   "thr": [r.throughput for r in art.rows],
                   "served": [len(r.out_tokens) for r in served]}))
 """
@@ -58,6 +65,7 @@ def test_import_and_run_leave_jax_and_reference_out_of_sys_modules():
     assert doc["after_import"] == [] and doc["after_run"] == []
     assert doc["after_serve"] == []
     assert doc["rows"] == 2 and all(t > 0 for t in doc["thr"])
+    assert doc["fleet_nodes"] == 2
     assert doc["served"] == [3]
 
 
@@ -116,13 +124,27 @@ def test_default_device_is_cuda_and_raises_without_one():
 
 
 def test_cluster_scenarios_raise_not_implemented():
+    """Fleets are ported now: a cluster scenario no longer raises
+    ``NotImplementedError`` -- it runs, on the card by default (and raises
+    there without one), and a malformed fleet is refused when the scenario
+    is built, as in the reference."""
+    import torch
+
+    from repro_torch.core.cluster import ClusterSpec
     from repro_torch.core.experiment import Experiment, RunOptions, Scenario
     sc = Scenario(engine="hash-index", n_keys=1500, n_wl_ops=400, n_ops=50,
                   latencies_us=(1,), thread_candidates=(4,),
                   cluster={"n_nodes": 2})
     assert Scenario.from_json(sc.to_json()) == sc     # the field round-trips
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Experiment(sc, RunOptions(device="cpu")).run()
+    assert sc.cluster_spec() == ClusterSpec(n_nodes=2)
+    art = Experiment(sc, RunOptions(backend="loop")).run()
+    assert [n["node"] for n in art.rows[0].nodes] == [0, 1]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Experiment(sc).run()
+    with pytest.raises(ValueError, match="replication"):
+        Scenario(engine="hash-index", cluster={"n_nodes": 2,
+                                               "replication": 3})
 
 
 def test_backends_and_fork_context():

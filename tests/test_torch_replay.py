@@ -24,20 +24,18 @@ import numpy as np
 import pytest
 import torch
 
-import jax
-import jax.numpy as jnp
-from jax.experimental import enable_x64
-
 from repro.core.sim import SimConfig as RefSimConfig
 from repro.core.sim import replay_jax
 from repro.core.sim.arrivals import generate_arrivals as ref_generate_arrivals
 from repro.core.sim.arrivals import ArrivalSpec as RefArrivalSpec
 from repro.core.trace_ir import CompiledTrace as RefCompiledTrace
+from repro_torch.core.conformance import grid_tol
 from repro_torch.core.sim import SimConfig
 from repro_torch.core.sim import replay_torch as rt
 from repro_torch.core.trace_ir import CompiledTrace
 
-from _torch_port_support import ENGINES, US, XLA_NO_FMA, engine_trace
+from _torch_port_support import (ENGINES, US, ReferenceDraws, engine_trace,
+                                 run_grid_no_fma)
 
 
 @pytest.fixture(scope="module")
@@ -134,48 +132,10 @@ def test_planners_equal_the_references():
 # -- 3. bit-equality with the reference under its own draws --------------------
 
 
-class ReferenceDraws:
-    """The reference's per-cell threefry streams (``_grid_body``'s fold_in
-    structure), as an injectable ``draws`` source for the port."""
-
-    def __init__(self, seed):
-        self.seed = seed
-
-    def _cell_keys(self, stream_ids):
-        key = jax.random.PRNGKey(self.seed)
-        return jax.vmap(jax.random.fold_in, (None, 0))(
-            key, jnp.asarray(np.asarray(stream_ids, dtype=np.uint32)))
-
-    def init(self, stream_ids, n_slots):
-        f = jnp.float64
-        with enable_x64():
-            ck = self._cell_keys(stream_ids)
-            tids = jnp.arange(n_slots, dtype=jnp.int32)
-            u_cursor = jax.vmap(lambda k: jax.random.uniform(
-                jax.random.fold_in(k, 0), (), dtype=f))(ck)
-            u_thread = jax.vmap(lambda k: jax.vmap(
-                lambda t: jax.random.uniform(jax.random.fold_in(k, 2 + t),
-                                             (2,), dtype=f))(tids))(ck)
-            return np.asarray(u_cursor), np.asarray(u_thread)
-
-    def chunk(self, stream_ids, ck, n_u):
-        with enable_x64():
-            kc = jax.vmap(lambda k: jax.random.fold_in(k, 1))(
-                self._cell_keys(stream_ids))
-            us = jax.vmap(lambda k: jax.random.uniform(
-                jax.random.fold_in(k, jnp.int32(ck)), (1024, n_u),
-                dtype=jnp.float64))(kc)
-            return np.asarray(jnp.moveaxis(us, 0, -1))
-
-
 def _reference_grid(monkeypatch, cfg_kw, trace, lats, cands, **kw):
     """The reference's ``sweep_grid`` with its grid program compiled at
     optimisation level 0 (no FMA contraction); nothing else is changed."""
-    def run_grid(*args, **static):
-        fn = jax.jit(partial(replay_jax._grid_body, **static))
-        return fn.lower(*args).compile(compiler_options=XLA_NO_FMA)(*args)
-
-    monkeypatch.setattr(replay_jax, "_run_grid", run_grid)
+    monkeypatch.setattr(replay_jax, "_run_grid", run_grid_no_fma)
     return replay_jax.sweep_grid(RefSimConfig(**cfg_kw), trace, lats, cands,
                                  **kw)
 
@@ -355,8 +315,11 @@ def test_under_run_raises_runtime_error(monkeypatch, hash_small):
 
 
 def test_grid_tol_law():
+    """The law has one home, the port's conformance module, and is the
+    reference's ``jax_grid_tol``; the grid module keeps no copy."""
     from repro.core.conformance import jax_grid_tol
     for n in (100, 600, 5000, 20_000, 80_000):
-        assert rt.grid_tol(n) == pytest.approx(jax_grid_tol(n), rel=1e-15)
-        assert rt.grid_tol(n, slack=1.25) == pytest.approx(
+        assert grid_tol(n) == pytest.approx(jax_grid_tol(n), rel=1e-15)
+        assert grid_tol(n, slack=1.25) == pytest.approx(
             jax_grid_tol(n, slack=1.25), rel=1e-15)
+    assert not hasattr(rt, "grid_tol") and not hasattr(rt, "GRID_TOL")

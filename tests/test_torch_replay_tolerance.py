@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 from repro_torch.core.sim import SimConfig, simulate_compiled
+from repro_torch.core.conformance import grid_tol
 from repro_torch.core.sim import replay_torch as rt
 
 from _torch_port_support import US, engine_trace
@@ -57,13 +58,13 @@ FEATURES = [
 def test_device_features_close_to_loop(hash_small, kw):
     cfg = SimConfig(P=12, seed=7, **kw)
     worst, _ = _worst(cfg, hash_small, [1 * US, 5 * US], [6, 8], N_OPS)
-    assert worst < rt.grid_tol(N_OPS, slack=1.25), f"{kw}: {worst:.2%}"
+    assert worst < grid_tol(N_OPS, slack=1.25), f"{kw}: {worst:.2%}"
 
 
 def test_multicore_close_to_loop(hash_small):
     cfg = SimConfig(P=12, seed=7, n_cores=2, T_lock=0.1 * US)
     worst, _ = _worst(cfg, hash_small, [1 * US, 5 * US], [3, 4], N_OPS)
-    assert worst < rt.grid_tol(N_OPS, slack=1.25), f"{worst:.2%}"
+    assert worst < grid_tol(N_OPS, slack=1.25), f"{worst:.2%}"
 
 
 def test_mem_counters_track_loop(hash_small):
@@ -99,5 +100,5 @@ def test_open_loop_tail_close_to_loop(hash_small):
     assert abs(grid.p99[0, 0] - s.p99) / s.p99 < 0.12
     assert abs(grid.lat_max[0, 0] - s.max) / s.max < 0.25
     assert abs(grid.throughput[0, 0] - ref.throughput) / ref.throughput \
-        < rt.grid_tol(N_OPS)
+        < grid_tol(N_OPS)
     assert np.isfinite(grid.lat_hist).all() and grid.lat_hist.sum() == N_OPS
