@@ -29,14 +29,30 @@ and drives the port's paths, each in a counted window of its own:
     ``repro_torch.kernels.ops`` at the reference bench's full-width shapes
     (llava-next-mistral-7b's attention heads, rwkv6-3b's WKV heads).
 
+  * the system's own entry points: ``python -m benchmarks.run_torch``
+    (the scenario suite, one scenario and ``--engine lsm --cores 4``, held
+    cell by cell against the host loop; then every paper figure and the
+    kernels' rows, the figures' grid cells held against the loop's), the
+    grid bench (``benchmarks.torch_grid_bench``, every suite at the
+    reference's sizes), the tail bench (``FULL``, beside the host loop)
+    and both examples (``examples/*_torch.py``).
+
 It times the kernels and prints one JSON object per phase.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failing phase exits non-zero; there
 is no CPU fallback: without a CUDA device the script fails.
 """
 import argparse
+import contextlib
+import hashlib
+import importlib.util
+import inspect
+import io
 import json
 import math
+import numbers
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -64,6 +80,7 @@ from repro_torch.core.engines import run_trace
 from repro_torch.core.experiment import Experiment, RunOptions, Scenario
 from repro_torch.core.sim import generate_arrivals, simulate_compiled
 from repro_torch.core.sim import replay_torch as rt
+from repro_torch.core.sim import sweep as sweep_mod
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_kv_gather as pk
@@ -78,6 +95,10 @@ from repro_torch.serve.engine import Request, ServeEngine
 
 from benchmarks import cluster_bench_torch as cbench
 from benchmarks import kernels_bench_torch as kbench
+from benchmarks import paper_figs_torch as pfigs
+from benchmarks import run_torch
+from benchmarks import tail_latency_bench_torch as tbench
+from benchmarks import torch_grid_bench as gbench
 from benchmarks import sched_split_torch as ssplit
 from benchmarks.kernels_bench_torch import card_state, cuda_ms
 
@@ -1773,6 +1794,533 @@ def phase_kernels_bench(seed):
     return rows, launches, flash_by_instance, wkv_by_instance
 
 
+# -- the system's own entry points ----------------------------------------------
+
+#: Where the loop run of the paper figures memoizes its cells, so that every
+#: cell of the card's run can be held against its loop cell.
+FIG_LOOP_CACHE = ROOT / "build" / "paper_figs_loop_cache"
+#: The figures that sweep no grid: the same host code on either backend.
+HOST_FIGS = ("fig3_model_curves", "fig10_load_latency", "fig12_extended",
+             "fig14_multicore", "fig16_threads", "fig17_op_latency")
+HOST_ROWS = ("fig3/", "fig10/", "fig12", "fig14/", "fig16/", "fig17/")
+FIG_NAMES = tuple(f.__name__ for f in pfigs.ALL)
+
+
+def run_cli(argv):
+    """``benchmarks.run_torch`` in this process (so the launch counters see
+    its kernels): ``(stdout, wall s)``.  A non-zero exit fails the run."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            run_torch.main(list(map(str, argv)))
+    except SystemExit as e:
+        if e.code not in (None, 0):
+            fail(f"benchmarks.run_torch {' '.join(argv)} exited {e.code!r}:"
+                 f"\n{buf.getvalue()[-3000:]}")
+    torch.cuda.synchronize()
+    return buf.getvalue(), time.perf_counter() - t0
+
+
+def run_module(module, *argv, timeout=900):
+    """``python -m module argv`` in a process of its own: the host loop's
+    sweeps fork their workers, which a process holding a CUDA context
+    cannot.  ``(stdout, stderr, wall s)``; a non-zero exit fails the run."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                               if p]))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", module, *map(str, argv)],
+                         capture_output=True, text=True, cwd=ROOT, env=env,
+                         timeout=timeout)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        fail(f"python -m {module} {' '.join(map(str, argv))} exited "
+             f"{res.returncode}:\n{res.stdout[-2000:]}\n{res.stderr[-3000:]}")
+    return res.stdout, res.stderr, wall
+
+
+def check_doc(path):
+    """``tools/check_bench.py`` on a written document; fails the run."""
+    res = subprocess.run([sys.executable, str(ROOT / "tools" /
+                                              "check_bench.py"), str(path)],
+                         capture_output=True, text=True, timeout=120)
+    if res.returncode != 0:
+        fail(f"tools/check_bench.py refused {path.name}: "
+             f"{res.stdout}{res.stderr}")
+    return res.stdout.strip().splitlines()
+
+
+def csv_rows(text):
+    """``{name: (us_per_call, derived)}`` of a CSV printout, and the
+    ``bench/<name>/wall`` lines as ``{name: seconds}``."""
+    rows, walls = {}, {}
+    for line in text.splitlines()[1:]:
+        name, us, derived = line.split(",", 2)
+        if name.startswith("bench/") and name.endswith("/wall"):
+            if derived != "ok":
+                fail(f"{name}: {derived}")
+            walls[name.split("/")[1]] = float(us) / 1e6
+        else:
+            rows[name] = (float(us), derived)
+    return rows, walls
+
+
+def derived_field(derived, key):
+    return float(dict(kv.split("=", 1) for kv in derived.split(";"))[key])
+
+
+class SweepLog:
+    """Records every ``sweep_latency`` call made while installed (over each
+    module's binding of it): its arguments, the paper figure that made it
+    (from the stack) and its points."""
+
+    def __init__(self):
+        self.calls = []
+        self._real = sweep_mod.sweep_latency
+        self._sig = inspect.signature(self._real)
+
+    def __enter__(self):
+        real, sig, calls = self._real, self._sig, self.calls
+
+        def record(*a, **kw):
+            args = sig.bind(*a, **kw)
+            args.apply_defaults()
+            fig = next((f.function for f in inspect.stack()
+                        if f.function in FIG_NAMES), None)
+            pts = real(*a, **kw)
+            calls.append(dict(args.arguments, figure=fig, points=pts))
+            return pts
+        self._mods = [m for m in list(sys.modules.values())
+                      if getattr(m, "sweep_latency", None) is real]
+        for m in self._mods:
+            m.sweep_latency = record
+        return self
+
+    def __exit__(self, *exc):
+        for m in self._mods:
+            m.sweep_latency = self._real
+
+
+def cells_of(call):
+    """``(grid cells, host cells)`` of a torch-backend sweep: the scalar
+    latencies step on the grid, a mixture's cells on the host's compiled
+    loop (``sweep._run_torch_cells``)."""
+    k = len(call["thread_candidates"])
+    grid = sum(k for L in call["latencies"] if isinstance(L, numbers.Real))
+    return grid, k * len(call["latencies"]) - grid
+
+
+def loop_cell(cache, call, L, n):
+    """The loop run's throughput of one cell, from its sweep cache (None
+    where that sweep did not cache)."""
+    trace, _ = sweep_mod._coerce_trace(call["source"])
+    digest = hashlib.sha1(trace.kinds.tobytes() + trace.durs.tobytes()
+                          + trace.bounds.tobytes()).hexdigest()
+    key = sweep_mod._cache_key(replace(call["cfg"], L_mem=L, n_threads=n),
+                               digest, call["n_ops"], call["warmup_ops"],
+                               "loop", None)
+    r = sweep_mod._cache_load(str(cache / f"{key}.json"))
+    return None if r is None else r.throughput
+
+
+def seed_spread(call, L, n, values, seeds=8):
+    """The host loop's own spread at one cell of a recorded sweep: the cell
+    at the next ``seeds`` seeds; where ``values`` (card, loop) sit in it."""
+    trace, _ = sweep_mod._coerce_trace(call["source"])
+    thr = np.array([simulate_compiled(
+        replace(call["cfg"], seed=call["cfg"].seed + s, L_mem=L,
+                n_threads=n), trace, call["n_ops"],
+        call["warmup_ops"]).throughput for s in range(1, seeds + 1)])
+    mean, std = float(thr.mean()), float(thr.std(ddof=1))
+    return {"reseed_mean": mean, "reseed_rel_std": std / mean,
+            "z_card": (values[0] - mean) / std,
+            "z_loop": (values[1] - mean) / std}
+
+
+def _suite_cells(doc_t, doc_l, scenarios, gate=True):
+    """Every ``per_thread`` cell of two suite documents, torch against loop,
+    under ``grid_tol`` (fleets: ``cluster-torch-vs-loop``); ``gate=False``
+    reports the gaps without failing the run."""
+    contract = conformance.CONTRACTS["cluster-torch-vs-loop"]
+    out, worst = [], {}
+    for name, art_t in doc_t["artifacts"].items():
+        sc = scenarios[name]
+        fleet = sc.cluster_spec() is not None and sc.cluster_spec().n_nodes > 1
+        tol = (grid_tol(sc.n_ops, base=contract.throughput_tol,
+                        ref_ops=contract.ref_ops) if fleet
+               else grid_tol(sc.n_ops))
+        w = 0.0
+        for rt_, rl in zip(art_t["rows"], doc_l["artifacts"][name]["rows"],
+                           strict=True):
+            for (n, t), (m, lp) in zip(rt_["per_thread"], rl["per_thread"],
+                                       strict=True):
+                rel = abs(t - lp) / lp
+                if n != m or (gate and rel > tol):
+                    fail(f"suite {name} L={rt_['L_us']}us {n} threads: card "
+                         f"{t} vs loop {lp} ({rel:.4%} > {tol:.4%})")
+                w = max(w, rel)
+                out.append(rel)
+        worst[name] = {"worst_rel": w, "tolerance": tol,
+                       "contract": ("cluster-torch-vs-loop" if fleet
+                                    else "torch-vs-loop")}
+    return worst, len(out)
+
+
+def phase_cli():
+    """``python -m benchmarks.run_torch`` on the card, through its
+    ``main``: the scenario suite (``examples/scenarios``), held cell by cell
+    against the suite on ``--backend loop`` (in a process of its own); one
+    scenario with ``--artifact``, which must repeat the suite's rows bit for
+    bit; and ``--engine lsm --cores 4``, its gaps to the loop reported
+    (not gated: ``ROADMAP.md`` C17).
+    Both suite documents go through ``tools/check_bench.py``; the diff
+    tool's report is printed, not gated (winners may flip within noise)."""
+    out = OUT_DIR / "cli"
+    out.mkdir(parents=True, exist_ok=True)
+    suite = ROOT / "examples" / "scenarios"
+    scenarios = {p.stem: Scenario.from_json(p.read_text())
+                 for p in sorted(suite.glob("*.json"))}
+    windows = {}
+
+    reset_counts()
+    text, wall = run_cli(["--suite", suite, "--suite-out",
+                          out / "suite_torch.json"])
+    windows["suite"] = dict(wall_s=wall, launches=counts())
+    reset_counts()
+    art_path = out / "hash_index_2ssd.json"
+    text_sc, wall = run_cli(["--scenario", suite / "hash_index_2ssd.json",
+                             "--artifact", art_path])
+    windows["scenario"] = dict(wall_s=wall, launches=counts())
+    reset_counts()
+    text_eng, wall = run_cli(["--engine", "lsm", "--cores", "4",
+                              "--artifact", out / "lsm_cores4_torch.json"])
+    windows["engine_lsm_cores4"] = dict(wall_s=wall, launches=counts())
+    for name, w in windows.items():
+        if w["launches"]["fused_steps"] <= 0:
+            fail(f"cli {name}: no fused_steps launch")
+        if w["launches"]["token_clock_update"]:
+            fail(f"cli {name}: standalone token-clock launches")
+
+    _, _, loop_wall = run_module(
+        "benchmarks.run_torch", "--backend", "loop", "--suite", suite,
+        "--suite-out", out / "suite_loop.json")
+    _, _, eng_loop_wall = run_module(
+        "benchmarks.run_torch", "--backend", "loop", "--engine", "lsm",
+        "--cores", "4", "--artifact", out / "lsm_cores4_loop.json")
+    checked = check_doc(out / "suite_torch.json") + \
+        check_doc(out / "suite_loop.json")
+    doc_t = json.loads((out / "suite_torch.json").read_text())
+    doc_l = json.loads((out / "suite_loop.json").read_text())
+    if doc_t["backend"] != "torch" or doc_l["backend"] != "loop":
+        fail(f"suite backends {doc_t['backend']}, {doc_l['backend']}")
+    worst, n_cells = _suite_cells(doc_t, doc_l, scenarios)
+    art = json.loads(art_path.read_text())
+    if art["rows"] != doc_t["artifacts"]["hash_index_2ssd"]["rows"]:
+        fail("--scenario hash_index_2ssd.json does not repeat the suite's "
+             "rows bit for bit")
+    eng_t = json.loads((out / "lsm_cores4_torch.json").read_text())
+    eng_l = json.loads((out / "lsm_cores4_loop.json").read_text())
+    eng_sc = Scenario.from_dict(eng_t["scenario"])
+    # reported, not gated: at 16-64 threads a core on 4 cores the
+    # reference's own grid misses grid_tol(5000) against the loop too
+    # (ROADMAP C17)
+    eng_worst, eng_cells = _suite_cells(
+        {"artifacts": {"lsm_cores4": eng_t}},
+        {"artifacts": {"lsm_cores4": eng_l}}, {"lsm_cores4": eng_sc},
+        gate=False)
+    diff = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "artifact_diff.py"),
+         str(out / "suite_loop.json"), str(out / "suite_torch.json")],
+        capture_output=True, text=True, timeout=120)
+    total = sum(w["launches"]["fused_steps"] for w in windows.values())
+    emit("cli", windows=windows, loop_suite_wall_s=loop_wall,
+         loop_engine_wall_s=eng_loop_wall,
+         suite_wall_s={e["scenario"]: e["wall_s"] for e in doc_t["index"]},
+         suite_cells=n_cells, suite_worst=worst,
+         engine_lsm_cores4={"cells": eng_cells, **eng_worst["lsm_cores4"],
+                            "gated": False, "note": "ROADMAP C17"},
+         scenario_repeats_suite_rows=True, check_bench=checked,
+         artifact_diff_rc=diff.returncode,
+         artifact_diff=(diff.stdout + diff.stderr).strip().splitlines()[-3:],
+         csv_rows=len(text.splitlines()) - 1, launches=total)
+    return total
+
+
+def phase_paper_figs():
+    """Every figure of ``paper_figs_torch.ALL`` and the kernels' rows on the
+    card, through ``benchmarks.run_torch``'s default list in this process
+    (the wall time of each from its ``bench/*/wall`` row); then every
+    figure again on ``--backend loop`` in a process of its own, its sweep
+    cells memoized.  Every grid cell of the card's fig11, fig13 and fig15
+    sweeps is held within ``grid_tol(n_ops)`` of its loop cell, save the
+    figures on record with the exact count and worst gap of their cells
+    past it (``_torch_kernel_cases.FIG_KNOWN_MISSES``, ROADMAP C17); each
+    figure's worst cell is shown beside the loop's own spread there over 8
+    more seeds.  The host-only figures must print the same rows."""
+    shutil.rmtree(FIG_LOOP_CACHE, ignore_errors=True)
+    reset_counts()
+    with SweepLog() as log:
+        text, wall = run_cli([])
+    launches = counts()
+    by_instance = {
+        "flash_attention": dict(fa.flash_attention.launches_by_instance),
+        "paged_decode_attention": dict(
+            pk.paged_decode_attention.launches_by_instance),
+        "wkv6": dict(wk.wkv6.launches_by_instance)}
+    for name in KERNELS:
+        if name != "token_clock_update" and launches[name] <= 0:
+            fail(f"paper_figs: kernel {name} was not launched")
+    if launches["token_clock_update"]:
+        fail("paper_figs: standalone token-clock launches")
+    rows_t, walls_t = csv_rows(text)
+    if sorted(walls_t) != sorted(FIG_NAMES + tuple(
+            f.__name__ for f in kbench.ALL)):
+        fail(f"paper_figs: benches run {sorted(walls_t)}")
+    for name, (us, derived) in rows_t.items():
+        if not math.isfinite(us) or us < 0 or "nan" in derived:
+            fail(f"paper_figs row {name}: {us},{derived}")
+
+    loop_out, _, loop_wall = run_module(
+        "benchmarks.run_torch", "--backend", "loop", "--device", "cpu",
+        "--sweep-cache", FIG_LOOP_CACHE)
+    rows_l, walls_l = csv_rows(loop_out)
+    for name, row in rows_l.items():
+        if name.startswith(HOST_ROWS) and rows_t.get(name) != row:
+            fail(f"host figure row {name} differs between the runs: "
+                 f"{rows_t.get(name)} vs {row}")
+
+    # every cell of the card's sweeps against the loop's cache; a cell past
+    # grid_tol must be on record with its figure (ROADMAP C17)
+    per_fig, compared, worst_cell, call_no = {}, {}, {}, {}
+    for call in log.calls:
+        fig = call["figure"]
+        if call["backend"] != "torch":
+            fail(f"{fig}: a sweep on backend {call['backend']!r}")
+        k = call_no[fig] = call_no.get(fig, -1) + 1
+        g, h = cells_of(call)
+        rec = per_fig.setdefault(fig, {"grid_cells": 0, "host_cells": 0,
+                                       "sweeps": 0})
+        rec["grid_cells"] += g
+        rec["host_cells"] += h
+        rec["sweeps"] += 1
+        tol = grid_tol(call["n_ops"])
+        for L, pt in zip(call["latencies"], call["points"]):
+            if not isinstance(L, numbers.Real):
+                continue
+            for n, thr in pt.per_thread.items():
+                ref = loop_cell(FIG_LOOP_CACHE, call, L, n)
+                if ref is None:
+                    continue
+                rel = abs(thr - ref) / ref
+                c = compared.setdefault(fig, {"cells": 0, "worst_rel": 0.0,
+                                              "tolerance": tol,
+                                              "over_tolerance": 0})
+                c["cells"] += 1
+                c["tolerance"] = max(c["tolerance"], tol)
+                if rel > tol:
+                    c["over_tolerance"] += 1
+                if rel >= c["worst_rel"]:
+                    c["worst_rel"], worst_cell[fig] = rel, (call, L, n, thr,
+                                                            ref, k)
+    for fig in ("fig11_microbenchmark", "fig13_engine_matrix"):
+        want = per_fig[fig]["grid_cells"]
+        if compared.get(fig, {}).get("cells") != want:
+            fail(f"{fig}: {compared.get(fig)} cells compared of {want}")
+    over = {fig: (c["over_tolerance"], c["worst_rel"])
+            for fig, c in compared.items() if c["over_tolerance"]}
+    if over != cases.FIG_KNOWN_MISSES:
+        fail(f"paper_figs: figures with cells past grid_tol {over}, on "
+             f"record {cases.FIG_KNOWN_MISSES} (ROADMAP C17)")
+    # each figure's worst cell beside the loop's own spread at that cell
+    for fig, (call, L, n, thr, ref, k) in worst_cell.items():
+        compared[fig]["worst_cell"] = dict(
+            call=k, L_us=L / US, threads=n, card=thr, loop=ref,
+            **seed_spread(call, L, n, (thr, ref)))
+
+    def headline(rows):
+        out = {}
+        for name, (_, d) in rows.items():
+            if name == "fig15/geomean_degradation":
+                out["fig15_geomean"] = derived_field(d, "geomean")
+            elif name.endswith("/degradation_at_10us"):
+                out[name] = derived_field(d, "d")
+            elif name.endswith("/max_model_err"):
+                out[name] = derived_field(d, "max_abs_rel")
+            elif name == "table6/flash_tail_degradation":
+                out["table6_d"] = derived_field(d, "d")
+        return out
+
+    emit("paper_figs", wall_s=wall, loop_wall_s=loop_wall,
+         fig_wall_s=walls_t, fig_loop_wall_s=walls_l, launches=launches,
+         launches_by_instance=by_instance, cells=per_fig,
+         host_figures=list(HOST_FIGS), vs_loop=compared,
+         past_grid_tol_on_record=sorted(over),
+         headline_card=headline(rows_t), headline_loop=headline(rows_l),
+         rows=len(rows_t))
+    return launches
+
+
+def phase_grid_bench():
+    """``benchmarks.torch_grid_bench`` at the reference's sizes, every
+    suite, nothing cut (``mega``: 4096 cells), in a process of its own (its
+    loop side forks its workers before the process touches the card).
+    ``validate`` must pass, every entry must launch ``fused_steps``, and
+    every entry's worst cell must lie within its ``grid_tol`` save the
+    entries on record with their exact figure
+    (``_torch_kernel_cases.GRID_BENCH_KNOWN_MISSES``, ROADMAP C17); the
+    speed floors are printed, never fatal."""
+    path = OUT_DIR / "torch_grid_bench.json"
+    _, err, wall = run_module("benchmarks.torch_grid_bench", "--suite",
+                              "default,mega,het,smoke", "--out", path)
+    doc = json.loads(path.read_text())
+    try:
+        checked = gbench.validate(doc)
+    except ValueError as e:
+        fail(f"torch_grid_bench: {e}")
+    if doc["summary"]["mega"]["cells"] != 4096:
+        fail(f"mega suite cut: {doc['summary']['mega']['cells']} cells")
+    for e in doc["entries"]:
+        if e["fused_steps_launches"] <= 0:
+            fail(f"torch_grid_bench {e['name']}: no fused_steps launch")
+    over = {e["name"]: e["worst_rel"] for e in gbench.over_bound(doc)}
+    if over != cases.GRID_BENCH_KNOWN_MISSES:
+        fail(f"torch_grid_bench: entries past grid_tol {over}, on record "
+             f"{cases.GRID_BENCH_KNOWN_MISSES} (ROADMAP C17)")
+    floors = gbench.floors(doc)
+    for f in floors:
+        print(f"chip_smoke: grid_bench floor {f['suite']}: {f['measure']} "
+              f"{f['value']:.3f}x (floor {f['floor']}x) "
+              f"{'met' if f['met'] else 'MISSED'}", flush=True)
+    emit("grid_bench", wall_s=wall, summary=doc["summary"],
+         entries=[{k: e[k] for k in (
+             "name", "cells", "n_ops", "loop_s", "torch_cold_s",
+             "torch_warm_s", "warm_speedup", "worst_rel", "worst_rel_bound",
+             "loop_reseed_worst_rel", "fused_steps_launches")}
+             for e in doc["entries"]],
+         over_bound_on_record=sorted(over),
+         het={k: v for k, v in doc["entries"][-2].items()
+              if k.startswith(("torch_cohort", "torch_mono", "mono",
+                               "cell_steps", "steps_saved"))},
+         validate=checked, floors=floors,
+         launches=sum(e["fused_steps_launches"] for e in doc["entries"]),
+         launches_note="one warm call of each entry, counted in the "
+                       "bench's process",
+         host=doc["host"], log=[ln for ln in err.splitlines()
+                                if ln.startswith("#")])
+    return floors
+
+
+class _Row:
+    """The slice of an artifact row the conformance gates read."""
+
+    def __init__(self, e):
+        self.tail = {k: e[k] for k in ("p50_us", "p90_us", "p99_us")}
+        self.throughput, self.n_threads = e["achieved_load"], e["n_threads"]
+
+
+def phase_tail_bench():
+    """``benchmarks.tail_latency_bench_torch`` ``FULL`` on the card (in this
+    process, counted) and on ``--backend loop`` (in a process of its own);
+    both documents through ``tools/check_bench.py``.  Capacity within
+    ``grid_tol(4000)``; p50 / p99 of each point held to the conformance
+    harness's own ``torch-vs-loop`` tail bounds and gates (its p50 gate for
+    bimodal sojourns, its queueing gate)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    doc_t = tbench.document(tbench.FULL, "torch", DEV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    if launches["fused_steps"] <= 0 or launches["token_clock_update"]:
+        fail(f"tail_bench launches: {launches}")
+    path_t = OUT_DIR / "tail_latency_bench_torch.json"
+    path_l = OUT_DIR / "tail_latency_bench_loop.json"
+    path_t.write_text(json.dumps(doc_t, indent=2) + "\n")
+    _, _, loop_wall = run_module("benchmarks.tail_latency_bench_torch",
+                                 "--backend", "loop", "--out", path_l)
+    checked = check_doc(path_t) + check_doc(path_l)
+    doc_l = json.loads(path_l.read_text())
+    n_ops = tbench.FULL["n_ops"]
+    name = tbench.FULL["name"]
+    cap_t, cap_l = (d["summary"][name]["capacity"] for d in (doc_t, doc_l))
+    cap_rel, cap_tol = abs(cap_t - cap_l) / cap_l, grid_tol(n_ops)
+    if cap_rel > cap_tol:
+        fail(f"tail_bench capacity: card {cap_t} vs loop {cap_l} "
+             f"({cap_rel:.4%} > {cap_tol:.4%})")
+    contract = conformance.CONTRACTS["torch-vs-loop"]
+    bounds = {f: tail_tol(n_ops, base=getattr(contract, f"{f}_tol"),
+                          ref_ops=contract.tail_ref_ops,
+                          slack=conformance.FUZZ_TAIL_SLACK)
+              for f in ("p50", "p99")}
+    points, misses = [], []
+    for et, el in zip(doc_t["entries"], doc_l["entries"], strict=True):
+        if (et["L_us"], et["offered_frac"]) != (el["L_us"],
+                                                el["offered_frac"]):
+            fail("tail_bench: the two documents' points differ")
+        gated = conformance._queueing_dominated(_Row(el), 1)
+        fails = [] if gated else conformance._tail_fails(
+            _Row(el).tail, _Row(et).tail, p50_tol=bounds["p50"],
+            p99_tol=bounds["p99"], check="tail_bench",
+            contract=contract.name, label=f"L={et['L_us']}us "
+            f"@{et['offered_frac']}", sc=None)
+        misses += [f.message for f in fails]
+        points.append({
+            "L_us": et["L_us"], "offered_frac": et["offered_frac"],
+            "offered_card": et["offered_load"],
+            "offered_loop": el["offered_load"],
+            "achieved_card": et["achieved_load"],
+            "achieved_loop": el["achieved_load"],
+            **{f"{f}_{s}": d[f"{f}_us"] for f in ("p50", "p99")
+               for s, d in (("card", et), ("loop", el))},
+            **{f"{f}_rel": conformance._rel(el[f"{f}_us"], et[f"{f}_us"])
+               for f in ("p50", "p99")},
+            "queueing_gated": gated})
+    if misses:
+        fail(f"tail_bench tails off the torch-vs-loop bound: {misses}")
+    emit("tail_bench", wall_s=wall, loop_wall_s=loop_wall,
+         launches=launches, capacity_card=cap_t, capacity_loop=cap_l,
+         capacity_rel=cap_rel, capacity_tol=cap_tol, tail_bounds=bounds,
+         points=points, check_bench=checked,
+         sources=[doc_t["entries"][0]["source"],
+                  doc_l["entries"][0]["source"]])
+    return launches
+
+
+def phase_examples():
+    """``examples/kvstore_demo_torch.py`` and ``serve_tiered_kv_torch.py``
+    on the card, each through its ``main`` in a counted window; a non-zero
+    exit or an exception fails the run."""
+    out = {}
+    for name, want in (("kvstore_demo_torch", "fused_steps"),
+                       ("serve_tiered_kv_torch", "paged_decode_attention")):
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        buf = io.StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                mod.main(["--device", "cuda"])
+        except SystemExit as e:
+            if e.code not in (None, 0):
+                fail(f"examples/{name}.py exited {e.code!r}:\n"
+                     f"{buf.getvalue()[-2000:]}")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts()
+        if launches[want] <= 0:
+            fail(f"examples/{name}.py launched no {want}")
+        out[name] = dict(wall_s=wall, launches=launches,
+                         stdout=buf.getvalue().splitlines())
+    if "on cuda)" not in out["serve_tiered_kv_torch"]["stdout"][0]:
+        fail(f"serve example: {out['serve_tiered_kv_torch']['stdout'][0]}")
+    emit("examples", **out)
+    return {k: v["launches"] for k, v in out.items()}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1947,6 +2495,27 @@ def main():
         tolerance="3e-2 bfloat16, 5e-5 float32, absolute after dividing by "
                   f"max|plain| + 1e-6, and {cases.WKV_ROW_TOL} relative to "
                   "each (b, t, h) row")
+    torch.cuda.empty_cache()
+
+    # the system's own entry points, each phase in a counted window
+    cli_launches = phase_cli()
+    figs_launches = phase_paper_figs()
+    phase_grid_bench()
+    tail_launches = phase_tail_bench()
+    example_launches = phase_examples()
+    fused["launches_entry_points"] = {
+        "cli": cli_launches, "paper_figs": figs_launches["fused_steps"],
+        "tail_bench": tail_launches["fused_steps"],
+        "kvstore_demo_torch": example_launches[
+            "kvstore_demo_torch"]["fused_steps"],
+        "grid_bench": "one warm call an entry, in its own process: "
+                      "see the grid_bench phase"}
+    for entry, name in ((paged, "paged_decode_attention"),
+                        (flash, "flash_attention"), (wkv, "wkv6")):
+        entry["launches_paper_figs"] = figs_launches[name]
+    paged["launches_serve_example"] = example_launches[
+        "serve_tiered_kv_torch"]["paged_decode_attention"]
+
     kernels = [fused, tok, paged, flash, wkv]
     total_s = time.perf_counter() - t_all
     emit("total", seconds=total_s)

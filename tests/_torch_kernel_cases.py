@@ -661,3 +661,36 @@ def unexpected_failures(fails) -> tuple[list, set]:
            for f in fails}
     new = [f for key, f in got.items() if key not in CORPUS_KNOWN_MISSES]
     return new, set(CORPUS_KNOWN_MISSES) - set(got)
+
+
+# -- the entry points' grids against the host loop ------------------------------
+
+#: Figures of ``benchmarks.paper_figs_torch`` whose grid cells, on the port's
+#: own streams, lie farther from their loop cells than ``grid_tol(n_ops)``,
+#: each as ``{figure: (cells past it, worst relative gap)}`` -- the same bits
+#: on the CPU and on the card (the streams are integer arithmetic, the kernel
+#: is bit-equal to the plain step).  Filed as ROADMAP C17: the law's 1 % at
+#: 20 000 ops was measured on the paper grid's hash-index cells; the cache
+#: engines and the LSM store spread farther, and the reference's own jax grid
+#: misses the law at the same figures (the worst cell of each figure is shown
+#: beside the loop's own spread over 8 more seeds by ``chip_smoke.py``).  The
+#: bound is the reference's and stays unchanged: the misses are asserted with
+#: their figures, so a change either way fails.
+FIG_KNOWN_MISSES = {
+    "fig11_kvstores": (9, 0.06003245180500545),
+    "fig13_engine_matrix": (12, 0.08407528736103399),
+    "fig15_settings": (5, 0.1216484785868939),
+}
+
+#: The grid bench's entries (``benchmarks.torch_grid_bench``) whose worst
+#: cell lies farther from its loop cell than ``grid_tol(n_ops)``, each with
+#: that exact worst relative gap (ROADMAP C17; the reference's jax grid on
+#: the same cells: lsm 4.70 % / 5.21 %, two-tier-cache 24.74 % / 24.58 %,
+#: het 4.45 %).
+GRID_BENCH_KNOWN_MISSES = {
+    "mega:lsm:ssd1": 0.044850112914520845,
+    "mega:lsm:ssd2": 0.049718153987534326,
+    "mega:two-tier-cache:ssd1": 0.2445107003634176,
+    "mega:two-tier-cache:ssd2": 0.2459697097516158,
+    "het:lsm": 0.04154955894095024,
+}

@@ -26,6 +26,16 @@ import repro_torch.kernels.ops
 import repro_torch.core.conformance
 import benchmarks.kernels_bench_torch
 import benchmarks.cluster_bench_torch
+import benchmarks.common_torch
+import benchmarks.run_torch
+import benchmarks.paper_figs_torch
+import benchmarks.torch_grid_bench
+import benchmarks.tail_latency_bench_torch
+import importlib.util
+for example in ("kvstore_demo_torch", "serve_tiered_kv_torch"):
+    spec = importlib.util.spec_from_file_location(
+        example, f"examples/{example}.py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 after_import = foreign()
 from repro_torch.core.experiment import Experiment, RunOptions, Scenario
 doc = json.load(open(sys.argv[1]))
@@ -67,6 +77,51 @@ def test_import_and_run_leave_jax_and_reference_out_of_sys_modules():
     assert doc["rows"] == 2 and all(t > 0 for t in doc["thr"])
     assert doc["fleet_nodes"] == 2
     assert doc["served"] == [3]
+
+
+_CLI_CHILD = r"""
+import json, runpy, sys
+sys.argv = ["benchmarks.run_torch", "--list-engines"]
+runpy.run_module("benchmarks.run_torch", run_name="__main__")
+print(json.dumps(sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "repro"))))
+"""
+
+
+def test_run_torch_list_engines_leaves_jax_and_reference_out():
+    import json
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _CLI_CHILD],
+                         capture_output=True, text=True, env=env,
+                         timeout=120, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr[-2000:]
+    *names, foreign = out.stdout.strip().splitlines()
+    assert "hash-index" in names and json.loads(foreign) == []
+
+
+#: the entry points of the port outside ``src/repro_torch``
+ENTRY_POINTS = [ROOT / "benchmarks" / f"{m}.py" for m in (
+    "common_torch", "run_torch", "paper_figs_torch", "torch_grid_bench",
+    "tail_latency_bench_torch", "kernels_bench_torch",
+    "cluster_bench_torch")] + [ROOT / "examples" / f"{m}.py" for m in (
+        "kvstore_demo_torch", "serve_tiered_kv_torch")]
+
+
+@pytest.mark.parametrize("path", ENTRY_POINTS, ids=lambda p: p.name)
+def test_entry_points_import_neither_jax_nor_the_reference(path):
+    """Nor the reference's benchmark modules, which import it."""
+    rx = re.compile(
+        r"^\s*(import|from)\s+((jax|jaxlib|repro)(\.|\s|$)|"
+        r"\.(common|paper_figs|kernels_bench|cluster_bench|roofline_table|"
+        r"run|jax_grid_bench|tail_latency_bench)\s|"
+        r"benchmarks\.(common|paper_figs|kernels_bench|cluster_bench|"
+        r"roofline_table|run|jax_grid_bench|tail_latency_bench)(\s|$)|"
+        r"(\.|benchmarks)\s+import\s+(\w+(\s+as\s+\w+)?\s*,\s*)*"
+        r"(common|paper_figs|kernels_bench|cluster_bench|roofline_table|run|"
+        r"jax_grid_bench|tail_latency_bench)(\s+as\s+\w+)?\s*(,|$))",
+        re.MULTILINE)
+    assert not [m.group(0).strip() for m in rx.finditer(path.read_text())]
 
 
 def _sources():
