@@ -28,6 +28,13 @@ and drives the port's paths, each in a counted window of its own:
     flash attention, paged decode attention and wkv6 through
     ``repro_torch.kernels.ops`` at the reference bench's full-width shapes
     (llava-next-mistral-7b's attention heads, rwkv6-3b's WKV heads).
+  * the model zoo through ``repro_torch.zoo.get_api``: every architecture's
+    smoke config on the card against the CPU, then rwkv6-3b,
+    deepseek-moe-16b, qwen2-moe-a2.7b, zamba2-7b, whisper-small and
+    llava-next-mistral-7b at full width (weights drawn on the card from
+    ``--seed``), a forward and 64 teacher-forced decode steps each, decode
+    held against forward; the wkv6 kernel timed beside the model's
+    ``wkv_chunked`` at rwkv6-3b's own recurrence inputs.
 
   * the system's own entry points: ``python -m benchmarks.run_torch``
     (the scenario suite, one scenario and ``--engine lsm --cores 4``, held
@@ -81,7 +88,9 @@ from repro_torch.core.experiment import Experiment, RunOptions, Scenario
 from repro_torch.core.sim import generate_arrivals, simulate_compiled
 from repro_torch.core.sim import replay_torch as rt
 from repro_torch.core.sim import sweep as sweep_mod
+from repro_torch import zoo
 from repro_torch.kernels import _build
+from repro_torch.kernels import ops
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_kv_gather as pk
 from repro_torch.kernels import sched_step as sk
@@ -89,8 +98,10 @@ from repro_torch.kernels import token_clock as tc
 from repro_torch.kernels import wkv6 as wk
 from repro_torch.kernels.ref import (flash_attention_ref,
                                      paged_decode_attention_ref, wkv6_ref)
-from repro_torch.models import layers
+from repro_torch.configs import smoke_config
+from repro_torch.models import layers, rwkv6
 from repro_torch.models import transformer as tf
+from repro_torch.models import whisper as wh
 from repro_torch.serve.engine import Request, ServeEngine
 
 from benchmarks import cluster_bench_torch as cbench
@@ -161,6 +172,29 @@ FLASH_ROW_TOL = cases.FLASH_ROW_TOL
 # (1e-2; the reason is in tests/_torch_kernel_cases.py).  Typical outputs at
 # 32k keys are about 0.009, a third of the absolute 3e-2.
 PAGED_ROW_TOL = cases.PAGED_ROW_TOL
+
+# The model zoo (``model_families``): each of the six archs of the families
+# beside the dense transformer at its published width and depth, nothing
+# cut, one at a time, weights drawn on the card from --seed.  B 2 x S 64
+# tokens (llava-next with its 2880 patches in front, whisper with its 1500
+# frames), then 64 teacher-forced decode steps held against the forward at
+# the reference's decode-vs-forward bound (MoE at capacity factor 64, as
+# the reference's parity test); llava's decode sees the text alone, so it
+# has no parity check.
+FAMILY_ARCHS = ("rwkv6-3b", "deepseek-moe-16b", "qwen2-moe-a2.7b",
+                "zamba2-7b", "whisper-small", "llava-next-mistral-7b")
+FAMILY_B, FAMILY_S = 2, 64
+NO_PARITY = ("llava-next-mistral-7b",)
+# ... and at every arch's smoke config: the card's logits against the
+# port's CPU run on the same parameters (tests/_torch_kernel_cases.py's
+# MODEL_TOL), and the reference's parity protocol on the card (10 steps)
+# for its seven archs.
+SMOKE_PARITY_ARCHS = ("qwen2.5-3b", "starcoder2-3b", "deepseek-moe-16b",
+                      "zamba2-7b", "rwkv6-3b", "whisper-small",
+                      "qwen2-moe-a2.7b")
+# rwkv6-3b's own recurrence inputs for the wkv6 timing: layer 0 of the
+# forward above, and of a B 8 x S 4096 token batch.
+WKV_MODEL_BIG = (8, 4096)
 
 OUT_DIR = ROOT / "chiprun_out"
 PHASES = []
@@ -1794,6 +1828,257 @@ def phase_kernels_bench(seed):
     return rows, launches, flash_by_instance, wkv_by_instance
 
 
+# -- the model zoo -----------------------------------------------------------------
+
+
+def family_batch(cfg, B, S, gen, device):
+    """Tokens (B, S) and, for vlm / encdec, patches / frames (x 0.02) drawn
+    from ``gen`` on ``device``."""
+    b = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                 device=device)}
+    if cfg.family == "vlm":
+        b["patches"] = 0.02 * torch.randn(B, cfg.n_patches, cfg.vision_dim,
+                                          generator=gen, device=device)
+    if cfg.family == "encdec":
+        b["frames"] = 0.02 * torch.randn(B, cfg.n_frames, cfg.d_model,
+                                         generator=gen, device=device)
+    return b
+
+
+def teacher_forced(api, cfg, params, b, steps, max_len, device):
+    """Logits (B, steps, V) of ``steps`` decode steps fed ``b``'s tokens."""
+    B = b["tokens"].shape[0]
+    cache = api.init_cache(cfg, B, max_len, device=device)
+    if cfg.family == "encdec":
+        enc = wh.encode(params, b["frames"], cfg)
+        cache["xk"], cache["xv"] = wh.precompute_cross_kv(params, enc, cfg)
+    outs = []
+    for i in range(steps):
+        lg, cache = api.decode(params, cache, b["tokens"][:, i:i + 1], cfg)
+        outs.append(lg[:, 0])
+    return torch.stack(outs, dim=1)
+
+
+def rel_diff(got, want):
+    """max |got - want| over max |want| (+1e-9), the reference's parity
+    measure."""
+    g, w = got.float(), want.float()
+    return float((g - w).abs().max()) / (float(w.abs().max()) + 1e-9)
+
+
+def family_smoke(arch, seed):
+    """One arch at its smoke config: the card against the port's CPU run on
+    the same parameters (drawn on the host from ``seed``), and the parity
+    protocol on the card."""
+    cfg = smoke_config(ARCHS[arch])
+    api = zoo.get_api(cfg)
+    gen = torch.Generator().manual_seed(seed)
+    p_cpu = layers.init_params(api.param_specs(cfg), gen)
+    b_cpu = family_batch(cfg, 2, 32, gen, "cpu")
+    want, _ = api.logits(p_cpu, b_cpu, cfg)
+    p_dev = layers.map_tree(lambda t: t.to(DEV), p_cpu)
+    b_dev = {k: v.to(DEV) for k, v in b_cpu.items()}
+    got, aux = api.logits(p_dev, b_dev, cfg)
+    rec = {"arch": arch, "max_abs_err_vs_cpu": float(
+        (got.float().cpu() - want.float()).abs().max()),
+        "tol": cases.MODEL_TOL,
+        "finite": bool(torch.isfinite(got.float()).all()
+                       and torch.isfinite(aux))}
+    if arch in SMOKE_PARITY_ARCHS:
+        pcfg = cfg.replace(capacity_factor=64.0) if cfg.family == "moe" \
+            else cfg
+        b10 = {k: (v[:, :10] if k == "tokens" else v)
+               for k, v in b_dev.items()}
+        full, _ = api.logits(p_dev, b10, pcfg)
+        step = teacher_forced(api, pcfg, p_dev, b10, 10, 12, DEV)
+        rec.update(parity_rel=rel_diff(step, full),
+                   parity_tol=cases.PARITY_TOL[arch])
+    return rec
+
+
+def family_full(arch, seed):
+    """One arch at full width: init on the card, forward (warm, then timed),
+    64 teacher-forced decode steps, parity; rwkv6-3b also times the wkv6
+    kernel at its own recurrence's inputs.  Frees everything it made."""
+    cfg = ARCHS[arch]
+    if cfg.family == "moe":
+        cfg = cfg.replace(capacity_factor=64.0)
+    api = zoo.get_api(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = layers.init_params(api.param_specs(cfg), gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    param_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    b = family_batch(cfg, FAMILY_B, FAMILY_S, gen, DEV)
+    api.logits(params, b, cfg)                       # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full, aux = api.logits(params, b, cfg)
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    step = teacher_forced(api, cfg, params, b, FAMILY_S, FAMILY_S, DEV)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / FAMILY_S
+    rec = {"arch": arch, "family": cfg.family, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "param_bytes": param_bytes,
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "init_peak_allocated_bytes": init_peak, "init_s": init_s,
+           "forward_s": forward_s, "forward_shape": list(full.shape),
+           "decode_ms_per_step": decode_ms, "decode_steps": FAMILY_S,
+           "finite": bool(torch.isfinite(full.float()).all()
+                          and torch.isfinite(aux)
+                          and torch.isfinite(step.float()).all())}
+    if arch not in NO_PARITY:
+        rec.update(parity_rel=rel_diff(step, full),
+                   parity_tol=cases.PARITY_TOL[arch])
+    if arch == "rwkv6-3b":
+        n0 = wk.wkv6.launches
+        rec["wkv_model_shape"] = wkv_model_shape(params, cfg, b["tokens"],
+                                                 gen)
+        rec["wkv_measure_launches"] = wk.wkv6.launches - n0
+    del params, full, step, b
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _wkv_layer0_inputs(params, cfg, tokens):
+    """r, k, v, log_w, u of rwkv6's layer 0 for ``tokens`` (float32)."""
+    lw = layers.take_layer(params["layers"], 0)
+    x = layers.layer_norm(layers.embed(params, tokens), params["ln_in"],
+                          params["ln_in_b"])
+    h = layers.layer_norm(x, lw["ln1"], lw["ln1_b"])
+    r, k, v, _, lwh, u = rwkv6._wkv_inputs(h, rwkv6._shift(h), lw, cfg)
+    return r, k, v, lwh, u
+
+
+def wkv_model_shape(params, cfg, tokens, gen):
+    """The wkv6 kernel at rwkv6-3b's own recurrence inputs (H 40, D 64,
+    chunk ``cfg.ssm_chunk`` 32), beside the model's ``wkv_chunked``: the
+    forward's layer 0 and a B 8 x S 4096 batch's.  float32 r/k/v
+    (``scalar_f32``) and their bf16 casts (``chunk_tc_bf16``), each held to
+    ``wkv_chunked`` on the same values; CUDA events after a warm-up, in turns
+    (plain, f32, bf16, bf16, f32, plain).  Measurement only: the model runs
+    ``wkv_chunked``, as the reference does."""
+    C = cfg.ssm_chunk
+    big = torch.randint(0, cfg.vocab, WKV_MODEL_BIG, generator=gen,
+                        device=DEV)
+    out = {}
+    for name, tok in (("forward", tokens), ("B8xS4096", big)):
+        r, k, v, lwh, u = _wkv_layer0_inputs(params, cfg, tok)
+        rb, kb, vb = (t.to(torch.bfloat16) for t in (r, k, v))
+        fns = {
+            "plain": lambda: rwkv6.wkv_chunked(r, k, v, lwh, u, C)[0],
+            "scalar_f32": lambda: ops.wkv6(r, k, v, lwh, u, chunk=C),
+            "chunk_tc_bf16": lambda: ops.wkv6(rb, kb, vb, lwh, u, chunk=C)}
+        before = dict(wk.wkv6.launches_by_instance)
+        want = fns["plain"]()
+        want_bf = rwkv6.wkv_chunked(rb.float(), kb.float(), vb.float(), lwh,
+                                    u, C)[0]
+        got = {i: fns[i]() for i in ("scalar_f32", "chunk_tc_bf16")}
+        torch.cuda.synchronize()
+        ran = {i: n - before[i] for i, n in
+               wk.wkv6.launches_by_instance.items()}
+        if ran != {"scalar_f32": 1, "chunk_tc_bf16": 1}:
+            fail(f"wkv6 at the model's {name} shape ran {ran}")
+        checks = {}
+        for inst, ref in (("scalar_f32", want), ("chunk_tc_bf16", want_bf)):
+            dt = "float32" if inst == "scalar_f32" else "bfloat16"
+            checks[inst] = {
+                "scaled_max_abs_err": cases.wkv_err(got[inst], ref),
+                "tol": cases.tol(dt),
+                "max_row_rel_err": cases.row_rel_err(got[inst], ref),
+                "row_tol": cases.WKV_ROW_TOL,
+                "finite": bool(torch.isfinite(got[inst]).all())}
+        reps = 50 if name == "forward" else 5
+        turns = {i: [] for i in fns}
+        for i in ("plain", "scalar_f32", "chunk_tc_bf16", "chunk_tc_bf16",
+                  "scalar_f32", "plain"):
+            turns[i].append(cuda_ms(fns[i], reps))
+        B, S, H, D = r.shape
+        flops = kbench.wkv6_counts(B, S, H, D)[0]
+        n = B * S * H * D
+        bounds = {
+            "scalar_f32": kbench.card_bound(flops, n * 5 * 4 + 4 * H * D,
+                                            kbench.PEAK_FLOPS_F32),
+            "chunk_tc_bf16": kbench.card_bound(
+                flops, kbench.wkv6_card_bytes(B, S, H, D),
+                kbench.PEAK_FLOPS_F32)}
+        out[name] = {
+            "shape": [B, S, H, D], "chunk": C, "reps": reps,
+            "ms_turns": turns,
+            "ms": {i: float(np.mean(t)) for i, t in turns.items()},
+            "bound_ms": {i: b[0] for i, b in bounds.items()},
+            "bound_by": {i: b[1] for i, b in bounds.items()},
+            "checks": checks, "launches_by_instance": ran}
+        del r, k, v, lwh, u, rb, kb, vb, want, want_bf, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_model_families(seed):
+    """The model zoo on the card: every arch at its smoke config against the
+    port's CPU run, then the six archs of the families beside the dense
+    transformer at full width.  The counts are set to 0 just before the
+    full-width runs and read just after: the models call no hand-written
+    kernel, as in the reference (the wkv6 timing inside is a measurement,
+    and its launches are its own).  Decode-vs-forward misses are held to
+    ``FAMILY_PARITY_KNOWN_MISSES`` exactly.  Fails after printing if any
+    check failed."""
+    t0 = time.perf_counter()
+    smoke = [family_smoke(a, seed) for a in sorted(ARCHS)]
+    smoke_s = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    full = [family_full(a, seed) for a in FAMILY_ARCHS]
+    full_s = time.perf_counter() - t0
+    launches = counts()
+    wkv_launches = sum(f.get("wkv_measure_launches", 0) for f in full)
+    bad = []
+    known = cases.FAMILY_PARITY_KNOWN_MISSES.get(seed, {})
+    for scope, recs in (("smoke", smoke), ("full", full)):
+        for rec in recs:
+            if not rec["finite"]:
+                bad.append(f"{rec['arch']} {scope}: non-finite logits")
+            if "parity_rel" not in rec:
+                continue
+            miss = known.get((scope, rec["arch"]))
+            rec["parity_known_miss"] = miss
+            if miss is not None and rec["parity_rel"] != miss:
+                bad.append(f"{rec['arch']} {scope}: the recorded parity miss "
+                           f"{miss!r} did not recur: {rec['parity_rel']!r}")
+            if miss is None and not rec["parity_rel"] < rec["parity_tol"]:
+                bad.append(f"{rec['arch']} {scope} parity "
+                           f"{rec['parity_rel']!r} >= {rec['parity_tol']}")
+    for rec in smoke:
+        if not rec["max_abs_err_vs_cpu"] <= rec["tol"]:
+            bad.append(f"{rec['arch']} smoke: card vs CPU {rec}")
+    for rec in full:
+        for name, m in rec.get("wkv_model_shape", {}).items():
+            for inst, c in m["checks"].items():
+                if not (c["finite"] and c["scaled_max_abs_err"] <= c["tol"]
+                        and c["max_row_rel_err"] <= c["row_tol"]):
+                    bad.append(f"wkv6 {inst} at the model's {name} shape "
+                               f"disagrees with wkv_chunked: {c}")
+    others = {k: n for k, n in launches.items() if k != "wkv6"}
+    if any(others.values()) or launches["wkv6"] != wkv_launches:
+        bad.append(f"the model path launched a hand-written kernel: "
+                   f"{launches} (wkv6 measurement {wkv_launches})")
+    emit("model_families", smoke_s=smoke_s, full_s=full_s, smoke=smoke,
+         full=full, launches=launches, wkv_measure_launches=wkv_launches)
+    emit("model_families_summary", archs={
+        r["arch"]: {k: r[k] for k in ("param_bytes", "peak_allocated_bytes",
+                                      "forward_s", "decode_ms_per_step")}
+        for r in full})
+    if bad:
+        fail("model_families: " + "; ".join(bad))
+    return full
+
+
 # -- the system's own entry points ----------------------------------------------
 
 #: Where the loop run of the paper figures memoizes its cells, so that every
@@ -2496,6 +2781,14 @@ def main():
                   f"max|plain| + 1e-6, and {cases.WKV_ROW_TOL} relative to "
                   "each (b, t, h) row")
     torch.cuda.empty_cache()
+
+    families = phase_model_families(args.seed)
+    rw = next(f for f in families if f["arch"] == "rwkv6-3b")
+    wkv["model_shape"] = {
+        name: {k: m[k] for k in ("shape", "chunk", "ms", "ms_turns",
+                                 "bound_ms", "bound_by", "checks")}
+        for name, m in rw["wkv_model_shape"].items()}
+    wkv["model_shape"]["plain"] = "models.rwkv6.wkv_chunked (float32)"
 
     # the system's own entry points, each phase in a counted window
     cli_launches = phase_cli()

@@ -1,4 +1,5 @@
-"""The port's model stack (plain PyTorch): the dense GQA transformer that the
-serving engine runs.  The other families of the reference (MoE, Mamba-2,
-RWKV-6, hybrid, enc-dec, VLM) are not ported yet (ROADMAP A12-A13)."""
-from . import convert, layers, transformer  # noqa: F401
+"""The port's model zoo (plain PyTorch): dense GQA transformer, MoE, Mamba-2,
+RWKV-6, Zamba2-style hybrid, Whisper-style enc-dec, LLaVA-style VLM, and the
+carrying of reference parameter trees (``convert``)."""
+from . import (convert, hybrid, layers, mamba2, moe, rwkv6,  # noqa: F401
+               transformer, vlm, whisper)

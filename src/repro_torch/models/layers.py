@@ -1,6 +1,6 @@
 """Shared building blocks of the port's model stack, in plain PyTorch.
 
-Counterpart of ``repro/models/layers.py`` for the serving path: parameter
+Counterpart of ``repro/models/layers.py`` for the model stack: parameter
 specs and their initialisation, the norms, rotary embeddings, the MLP,
 prefill attention (one dense block, or the blockwise online-softmax forward
 for long sequences) and single-token attention over a contiguous cache.
@@ -34,6 +34,9 @@ import torch.nn.functional as F
 __all__ = [
     "ParamSpec",
     "init_params",
+    "map_tree",
+    "take_layer",
+    "embed",
     "rms_norm",
     "layer_norm",
     "rope",
@@ -69,9 +72,11 @@ def _init_one(spec: ParamSpec, gen: torch.Generator) -> torch.Tensor:
     else:  # fan_in: scale by the penultimate (input) dimension
         fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
         scale = 1.0 / math.sqrt(max(fan_in, 1))
+    # scaled in place: a leaf's peak is one float32 draw beside its result
+    # (deepseek-moe-16b's experts.wi_gate is 20.7 GB of float32)
     draw = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
                        device=dev)
-    return (draw * scale).to(spec.dtype)
+    return draw.mul_(scale).to(spec.dtype)
 
 
 def init_params(specs, generator: torch.Generator) -> dict:
@@ -85,6 +90,25 @@ def init_params(specs, generator: torch.Generator) -> dict:
     if isinstance(specs, ParamSpec):
         return _init_one(specs, generator)
     return {k: init_params(specs[k], generator) for k in sorted(specs)}
+
+
+def map_tree(fn, tree):
+    """``fn`` applied to every leaf of a nested dict (parameter and spec
+    trees)."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def take_layer(tree, i: int):
+    """Views of entry ``i`` along the leading (stacked ``layers``) axis of
+    every leaf of ``tree``."""
+    return map_tree(lambda a: a[i], tree)
+
+
+def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows of ``params["embed"]`` (in :data:`DTYPE`) for integer tokens."""
+    return params["embed"].to(DTYPE)[tokens.long()]
 
 
 # ---------------------------------------------------------------------------

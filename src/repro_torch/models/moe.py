@@ -1,0 +1,197 @@
+"""Mixture-of-Experts transformer (DeepSeekMoE / Qwen2-MoE style), plain
+PyTorch.
+
+Counterpart of ``repro/models/moe.py``.  Shared experts (always-on SwiGLU)
++ fine-grained routed experts with top-k softmax gating and capacity-based
+token dropping (GShard discipline).  The dispatch is sort-based: expert id
+and rank within the expert come from a stable argsort, and tokens are
+scattered into a (G, E, C, d) buffer.  Routing ties go to the lower expert
+index, as the reference's top-k breaks them (``torch.topk`` promises no
+order, so the top k are taken from a stable descending sort).  On one device the
+groups are only the reference's arithmetic: there is no expert parallelism.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from .layers import DTYPE, ParamSpec, embed, mlp, take_layer
+from . import transformer as tf
+
+__all__ = ["param_specs", "forward", "decode_step", "init_cache", "moe_mlp",
+           "padded_experts", "capacity", "n_groups"]
+
+
+def padded_experts(cfg) -> int:
+    """Routed experts padded to a multiple of 16, as in the reference
+    (qwen2-moe's 60 -> 64; the 4 dead experts are masked out of routing and
+    receive no tokens)."""
+    return -(-cfg.n_experts // 16) * 16
+
+
+def _moe_layer_specs(cfg) -> dict:
+    sp = tf._layer_specs(cfg)
+    L, d, fe = cfg.n_layers, cfg.d_model, cfg.d_expert
+    E = padded_experts(cfg)
+    fs = cfg.n_shared * cfg.d_expert
+    sp["router"] = ParamSpec((L, d, E), ("layers", "embed", None),
+                             dtype=torch.float32)
+    sp["experts"] = {
+        "wi_gate": ParamSpec((L, E, d, fe), ("layers", "expert", "embed", "expert_mlp")),
+        "wi_up": ParamSpec((L, E, d, fe), ("layers", "expert", "embed", "expert_mlp")),
+        "wo": ParamSpec((L, E, fe, d), ("layers", "expert", "expert_mlp", "embed")),
+    }
+    if cfg.n_shared:
+        sp["shared"] = {
+            "wi_gate": ParamSpec((L, d, fs), ("layers", "embed", "mlp")),
+            "wi_up": ParamSpec((L, d, fs), ("layers", "embed", "mlp")),
+            "wo": ParamSpec((L, fs, d), ("layers", "mlp", "embed")),
+        }
+    del sp["mlp"]
+    return sp
+
+
+def param_specs(cfg) -> dict:
+    sp = tf.param_specs(cfg)
+    sp["layers"] = _moe_layer_specs(cfg)
+    return sp
+
+
+def capacity(n_tokens: int, cfg) -> int:
+    c = math.ceil(n_tokens * cfg.top_k / cfg.n_experts * cfg.capacity_factor)
+    return max(min(n_tokens, max(c, 8)), 1)
+
+
+def n_groups(T: int, cfg) -> int:
+    """Largest group count <= moe_groups dividing T (the reference's
+    data-parallel-aligned dispatch groups)."""
+    g = min(cfg.moe_groups, T)
+    while T % g:
+        g -= 1
+    return max(g, 1)
+
+
+def route(xt, router, cfg):
+    """Top-k routing of grouped tokens xt (G, Tg, d).
+
+    Returns (probs (G, Tg, E) float32, gate_vals (G, Tg, k) renormalised,
+    expert_idx (G, Tg, k) int64, aux) with the Switch-style load-balance
+    loss over all groups."""
+    E, k = padded_experts(cfg), cfg.top_k
+    logits = xt.float() @ router
+    if E != cfg.n_experts:  # mask padded (dead) experts out of routing
+        dead = torch.arange(E, device=xt.device) >= cfg.n_experts
+        logits = torch.where(dead, -math.inf, logits)
+    probs = torch.softmax(logits, dim=-1)
+    # the reference's top-k: descending, ties to the lower index
+    srt, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, expert_idx = srt[..., :k], idx[..., :k]
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True)
+    me = probs.mean(dim=(0, 1))
+    ce = F.one_hot(expert_idx, E).float().sum(2).mean(dim=(0, 1)) / k
+    aux = E * torch.sum(me * ce)
+    return probs, gate_vals, expert_idx, aux
+
+
+def dispatch_slots(flat_e, E: int, C: int):
+    """Rank of each (token, choice) within its expert, per group, in token
+    order: flat_e (G, Tg*k) -> (rank, keep = rank < C, dest = e*C +
+    min(rank, C-1)).  A stable argsort plus a left ``searchsorted``, as in
+    the reference."""
+    G, n = flat_e.shape
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    sorted_e = torch.gather(flat_e, -1, order)
+    experts = torch.arange(E, device=flat_e.device).expand(G, E).contiguous()
+    first = torch.searchsorted(sorted_e, experts)
+    rank_sorted = torch.arange(n, device=flat_e.device) \
+        - torch.gather(first, -1, sorted_e)
+    rank = torch.zeros_like(flat_e).scatter_(-1, order, rank_sorted)
+    keep = rank < C
+    dest = flat_e * C + torch.clamp(rank, max=C - 1)
+    return rank, keep, dest
+
+
+def moe_mlp(x: torch.Tensor, lw: dict, cfg) -> tuple[torch.Tensor, torch.Tensor]:
+    """Routed + shared expert FFN. x: (B, S, d) -> (out, aux_loss).
+
+    Grouped dispatch as in the reference: each group computes its own
+    top-k, rank within expert and capacity.  A dropped token adds zeros to
+    slot C-1 of its expert, so the capacity rule is the reference's."""
+    B, S, d = x.shape
+    T = B * S
+    E, k = padded_experts(cfg), cfg.top_k
+    G = n_groups(T, cfg)
+    Tg = T // G
+    C = capacity(Tg, cfg)
+    xt = x.reshape(G, Tg, d)
+    _, gate_vals, expert_idx, aux = route(xt, lw["router"], cfg)
+    flat_e = expert_idx.reshape(G, Tg * k)
+    _, keep, dest = dispatch_slots(flat_e, E, C)
+    tok = torch.arange(Tg * k, device=x.device) // k
+    vals = torch.where(keep[..., None], xt[:, tok], 0).to(DTYPE)
+    g_idx = torch.arange(G, device=x.device)[:, None].expand(G, Tg * k)
+    buf = torch.zeros((G, E * C, d), dtype=DTYPE, device=x.device)
+    buf.index_put_((g_idx, dest), vals, accumulate=True)
+    buf = buf.reshape(G, E, C, d)
+
+    ex = lw["experts"]
+    gt = torch.einsum("gecd,edf->gecf", buf, ex["wi_gate"])
+    up = torch.einsum("gecd,edf->gecf", buf, ex["wi_up"])
+    h = F.silu(gt.float()).to(DTYPE) * up
+    y = torch.einsum("gecf,efd->gecd", h, ex["wo"]).reshape(G, E * C, d)
+
+    out_tok = y[g_idx, dest] * (
+        keep[..., None] * gate_vals.reshape(G, Tg * k, 1)).to(DTYPE)
+    # the reference's bfloat16 sum accumulates in float32 and rounds once
+    routed = out_tok.reshape(G, Tg, k, d).float().sum(2).to(DTYPE)
+    out = routed.reshape(T, d)
+    if cfg.n_shared:
+        out = out + mlp(x.reshape(1, T, d), lw["shared"], "swiglu")[0]
+    return out.reshape(B, S, d).to(x.dtype), aux
+
+
+def _layer_body(x, lw, cfg, positions):
+    x, _, _ = tf._attn_block(x, lw, cfg, positions)
+    h = tf._norm(x, None, cfg, "mlp_norm", "mlp_norm_b", lw)
+    y, aux = moe_mlp(h, lw, cfg)
+    return x + y, aux
+
+
+def forward(params, tokens, cfg, prefix_embeds=None, remat: bool = True,
+            last_only: bool = False):
+    """Returns (logits, aux_loss_mean over layers).  ``remat`` is accepted
+    and ignored."""
+    x = embed(params, tokens)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(DTYPE), x], dim=1)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    auxes = []
+    for li in range(cfg.n_layers):
+        x, aux = _layer_body(x, take_layer(params["layers"], li), cfg,
+                             positions)
+        auxes.append(aux)
+    if last_only:
+        x = x[:, -1:]
+    return tf._head(params, x, cfg), torch.stack(auxes).mean()
+
+
+init_cache = tf.init_cache
+
+
+def decode_step(params, cache, tokens, cfg):
+    """One token through the MoE stack over a full or ring KV cache; the
+    caller's cache is left as it was."""
+    x = embed(params, tokens)
+    pos = cache["pos"]
+    k_all = cache["k"].clone()
+    v_all = cache["v"].clone()
+    for li in range(cfg.n_layers):
+        lw = take_layer(params["layers"], li)
+        x = tf._decode_attn_block(x, lw, k_all[li], v_all[li], pos, cfg)
+        h = tf._norm(x, None, cfg, "mlp_norm", "mlp_norm_b", lw)
+        y, _ = moe_mlp(h, lw, cfg)
+        x = x + y
+    return tf._head(params, x, cfg), {"k": k_all, "v": v_all, "pos": pos + 1}

@@ -1,15 +1,18 @@
 """Dense decoder-only transformer (GQA + RoPE), plain PyTorch.
 
-Counterpart of ``repro/models/transformer.py`` for serving: the parameter
-specs, prefill (the prompt through the model, building the KV cache) and the
-dense decode step over a full cache or a sliding-window ring buffer.  Covers
-qwen2.5-3b, starcoder2-3b, qwen1.5-110b, llama3-405b and the Mistral backbone
-of llava-next: RMSNorm/LayerNorm, SwiGLU/GELU FFN, QKV bias, sliding-window
+Counterpart of ``repro/models/transformer.py``: the parameter specs, the
+inference ``forward`` (logits of every position), prefill (the prompt
+through the model, building the KV cache) and the dense decode step over a
+full cache or a sliding-window ring buffer.  Covers qwen2.5-3b,
+starcoder2-3b, qwen1.5-110b, llama3-405b and the Mistral backbone of
+llava-next: RMSNorm/LayerNorm, SwiGLU/GELU FFN, QKV bias, sliding-window
 attention, tied embeddings.
 
 The layer stack is a Python loop over the stacked ``layers`` parameters.
-The training forward (``forward``, with its remat groups) is not ported yet
-(ROADMAP A15).
+``forward`` takes the reference's ``remat`` and does nothing with it: there
+is no backward yet.  The reference's ``remat_groups`` branch scans the same
+layers in groups (a different grouping of the same arithmetic for its
+backward), so here it is the one loop.
 """
 from __future__ import annotations
 
@@ -24,14 +27,17 @@ from .layers import (
     ParamSpec,
     attention,
     decode_attention,
+    embed,
     layer_norm,
     mlp,
     rms_norm,
     rope,
+    take_layer,
 )
 
 __all__ = [
     "param_specs",
+    "forward",
     "prefill",
     "decode_step",
     "init_cache",
@@ -88,11 +94,7 @@ def param_specs(cfg) -> dict:
 
 def layer_params(params: dict, li: int) -> dict:
     """Views of layer ``li``'s weights in the stacked ``params["layers"]``."""
-    def pick(tree):
-        if isinstance(tree, dict):
-            return {k: pick(v) for k, v in tree.items()}
-        return tree[li]
-    return pick(params["layers"])
+    return take_layer(params["layers"], li)
 
 
 def _norm(x, w, cfg, gamma_key, beta_key, lw=None):
@@ -119,10 +121,6 @@ def _qkv(x, lw, cfg, positions):
     return q, k, v
 
 
-def _embed(params, tokens):
-    return params["embed"].to(DTYPE)[tokens.long()]
-
-
 def _head(params, x, cfg):
     x = _norm(x, params, cfg, "final_norm", "final_norm_b")
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
@@ -132,6 +130,43 @@ def _head(params, x, cfg):
 def _ffn(x, lw, cfg):
     h = _norm(x, None, cfg, "mlp_norm", "mlp_norm_b", lw)
     return x + mlp(h, lw["mlp"], cfg.mlp_kind)
+
+
+def _attn_block(x, lw, cfg, positions):
+    """Pre-norm self-attention with its residual, before the FFN; returns
+    ``(x, k, v)``."""
+    h = _norm(x, None, cfg, "attn_norm", "attn_norm_b", lw)
+    q, k, v = _qkv(h, lw, cfg, positions)
+    o = attention(
+        q, k, v, causal=cfg.causal, sliding_window=cfg.sliding_window,
+        block_kv=cfg.attn_block_kv,
+    )
+    return x + o.reshape(*o.shape[:2], -1) @ lw["wo"], k, v
+
+
+def _layer_body(x, lw, cfg, positions):
+    x, _, _ = _attn_block(x, lw, cfg, positions)
+    return _ffn(x, lw, cfg)
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg,
+            prefix_embeds: torch.Tensor | None = None, remat: bool = True,
+            last_only: bool = False) -> torch.Tensor:
+    """Teacher-forced forward -> logits (B, S, vocab).
+
+    ``prefix_embeds`` (B, S_pre, d) go in front of the token embeddings
+    (the VLM's projected patches); ``last_only`` applies the head to the
+    final position only.  ``remat`` is accepted and ignored."""
+    x = embed(params, tokens)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(DTYPE), x], dim=1)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    for li in range(cfg.n_layers):
+        x = _layer_body(x, layer_params(params, li), cfg, positions)
+    if last_only:
+        x = x[:, -1:]
+    return _head(params, x, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -159,6 +194,32 @@ def init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
     }
 
 
+def _decode_attn_block(x, lw, k_cache, v_cache, pos, cfg):
+    """Self-attention of one decode token with its residual, over one
+    layer's cache (B, W, Hkv, D).
+
+    Writes the token's K/V into slot ``pos[0] % W`` of ``k_cache`` and
+    ``v_cache`` in place (callers pass their own copy).  The slot and the
+    valid length stay on the device: no host sync."""
+    B = x.shape[0]
+    h = _norm(x, None, cfg, "attn_norm", "attn_norm_b", lw)
+    q, k, v = _qkv(h, lw, cfg, pos[:, None].expand(B, 1))
+    W = k_cache.shape[1]
+    slot = (pos[:1] % W).long()
+    k_cache.index_copy_(1, slot, k)
+    v_cache.index_copy_(1, slot, v)
+    cache_len = torch.clamp(pos[:1] + 1, max=W)
+    o = decode_attention(q, k_cache, v_cache, cache_len)
+    return x + o.reshape(B, 1, -1) @ lw["wo"]
+
+
+def _decode_layer(x, lw, k_cache, v_cache, pos, cfg):
+    """One decode layer; writes the caches in place as
+    :func:`_decode_attn_block` does and returns ``(x, k_cache, v_cache)``."""
+    x = _decode_attn_block(x, lw, k_cache, v_cache, pos, cfg)
+    return _ffn(x, lw, cfg), k_cache, v_cache
+
+
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor, cfg):
     """One autoregressive step. tokens: (B, 1) -> (logits (B,1,V), cache).
 
@@ -166,25 +227,13 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, cfg):
     it was.  As in the reference, the batch shares one position,
     ``cache["pos"][0]``.
     """
-    x = _embed(params, tokens)
-    B = x.shape[0]
+    x = embed(params, tokens)
     pos = cache["pos"]
     k_all = cache["k"].clone()
     v_all = cache["v"].clone()
-    W = k_all.shape[2]
-    pos0 = int(pos[0])
-    slot = pos0 % W
-    cache_len = min(pos0 + 1, W)
-    positions = pos[:, None].expand(B, 1)
     for li in range(cfg.n_layers):
-        lw = layer_params(params, li)
-        h = _norm(x, None, cfg, "attn_norm", "attn_norm_b", lw)
-        q, k, v = _qkv(h, lw, cfg, positions)
-        k_all[li, :, slot] = k[:, 0]
-        v_all[li, :, slot] = v[:, 0]
-        o = decode_attention(q, k_all[li], v_all[li], cache_len)
-        x = x + o.reshape(B, 1, -1) @ lw["wo"]
-        x = _ffn(x, lw, cfg)
+        x, _, _ = _decode_layer(x, layer_params(params, li), k_all[li],
+                                v_all[li], pos, cfg)
     logits = _head(params, x, cfg)
     return logits, {"k": k_all, "v": v_all, "pos": pos + 1}
 
@@ -198,18 +247,12 @@ def prefill(params: dict, tokens: torch.Tensor, cfg, max_len: int | None = None)
     B, S = tokens.shape
     max_len = max_len or S
     W = cache_window(cfg, max_len)
-    x = _embed(params, tokens)
+    x = embed(params, tokens)
     positions = torch.arange(S, device=x.device).expand(B, S)
     ks, vs = [], []
     for li in range(cfg.n_layers):
         lw = layer_params(params, li)
-        h = _norm(x, None, cfg, "attn_norm", "attn_norm_b", lw)
-        q, k, v = _qkv(h, lw, cfg, positions)
-        o = attention(
-            q, k, v, causal=cfg.causal, sliding_window=cfg.sliding_window,
-            block_kv=cfg.attn_block_kv,
-        )
-        x = x + o.reshape(B, S, -1) @ lw["wo"]
+        x, k, v = _attn_block(x, lw, cfg, positions)
         x = _ffn(x, lw, cfg)
         # keep the last W positions in the (ring) cache, slot = pos % W
         k_keep = k[:, -W:]

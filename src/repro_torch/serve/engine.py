@@ -24,7 +24,7 @@ import torch
 from ..core.sim.replay_torch import resolve_device
 from ..kernels.ops import paged_decode_attention
 from ..models import transformer as tf
-from ..models.layers import init_params
+from ..models.layers import embed, init_params
 from .kv_cache import PagedKVCache, PageStoreConfig
 
 __all__ = ["Request", "ServeEngine"]
@@ -129,7 +129,7 @@ class ServeEngine:
         bt, lengths = self.cache.batch_views(seq_ids)
         page_idx, slot = self.cache.token_slots(seq_ids)
         B = len(seq_ids)
-        x = tf._embed(self.params, tokens)                     # (B,1,d)
+        x = embed(self.params, tokens)                         # (B,1,d)
         positions = (lengths - 1)[:, None]                     # new slot index
         for li, lw in enumerate(self._layers):
             h = tf._norm(x, None, cfg, "attn_norm", "attn_norm_b", lw)

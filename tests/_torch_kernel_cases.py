@@ -49,7 +49,8 @@ __all__ = ["FLAG_SETS", "make_case", "step_args", "states_agree",
            "FLASH_ROW_TOL", "row_rel_err", "make_flash_case",
            "flash_tensors", "WKV_CASES", "WKV_BENCH", "make_wkv_case",
            "wkv_tensors", "wkv_err", "PAGED_BENCH", "WKV_TC_CASES",
-           "WKV_ROW_TOL", "WKV_DECAYS", "wkv_decay"]
+           "WKV_ROW_TOL", "WKV_DECAYS", "wkv_decay", "PARITY_TOL",
+           "FAMILY_PARITY_KNOWN_MISSES"]
 
 US = 1e-6
 
@@ -355,6 +356,37 @@ PAGED_SPLIT_CASES = {
 #: 0.0078-0.031; the worst difference seen on the CPU against the reference
 #: is 0.055, and 0.125 is four steps at the top of that range.
 MODEL_TOL = 0.125
+
+#: The reference's decode-vs-forward bounds (``tests/test_models.py``'s
+#: ``_PARITY_TOL``), relative to the forward's largest logit; the port keeps
+#: its own copy.
+PARITY_TOL = {
+    "qwen2.5-3b": 1e-2, "starcoder2-3b": 1e-2, "qwen1.5-110b": 1e-2,
+    "llama3-405b": 1e-2, "rwkv6-3b": 1e-2,
+    "deepseek-moe-16b": 2e-2, "qwen2-moe-a2.7b": 2e-2,
+    "zamba2-7b": 5e-2, "whisper-small": 2e-2, "llava-next-mistral-7b": 1e-2,
+}
+
+
+#: Decode-vs-forward misses of ``chip_smoke.py``'s ``model_families`` on an
+#: H100 at ``--seed`` 0 (``ROADMAP.md`` C21), recorded exactly: the run
+#: fails unless each recurs to the bit, or if any other arch misses
+#: ``PARITY_TOL``.  Keys are (scope, arch): "smoke" is the arch's smoke
+#: config (10 steps), "full" its published width and depth (64 steps).
+#: bfloat16 rounding that differs between the forward's GEMMs (M = B x S)
+#: and the decode's (M = B) is amplified through the layers of random
+#: weights, and in the MoE stacks it flips routed experts; with every
+#: module in float32 the port's decode reproduces its forward
+#: (``tests/test_torch_zoo.py::test_decode_matches_forward_in_float32_at_depth``),
+#: and the reference misses its own bounds the same way at depth on the
+#: CPU (rwkv6 0.467 at 16 smoke layers, S 40).
+FAMILY_PARITY_KNOWN_MISSES = {
+    0: {("smoke", "rwkv6-3b"): 0.010504201677847609,
+        ("full", "rwkv6-3b"): 0.8872832368300979,
+        ("full", "deepseek-moe-16b"): 0.11920646065272693,
+        ("full", "qwen2-moe-a2.7b"): 0.1841397849145566,
+        ("full", "zamba2-7b"): 0.23028273805137472},
+}
 
 
 def make_paged_case(case, seed: int = 1) -> dict:

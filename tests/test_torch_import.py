@@ -2,7 +2,7 @@
 ``jaxlib``, ``ml_dtypes`` or anything of the reference package ``repro`` --
 not on import (the kernel ops, the conformance harness and the port's
 benches included), not after a grid run, not after a fleet run, not after
-serving a request."""
+serving a request, not after a forward of every family of the model zoo."""
 import re
 import subprocess
 import sys
@@ -53,8 +53,27 @@ eng = ServeEngine(smoke_config(ARCHS["qwen2.5-3b"]), n_pages=16, page_size=8,
 eng.submit(Request(rid=0, prompt=np.arange(1, 10, dtype=np.int32),
                    max_new_tokens=3))
 served = eng.run()
+after_serve = foreign()
+import torch
+import repro_torch.zoo
+from repro_torch.models import whisper
+from repro_torch.models.layers import init_params
+families = {}
+for arch in ("qwen2.5-3b", "deepseek-moe-16b", "llava-next-mistral-7b",
+             "zamba2-7b", "rwkv6-3b", "whisper-small"):
+    cfg = smoke_config(ARCHS[arch])
+    api = repro_torch.zoo.get_api(cfg)
+    p = init_params(api.param_specs(cfg), torch.Generator().manual_seed(0))
+    b = {"tokens": torch.ones((1, 6), dtype=torch.int32)}
+    if cfg.family == "vlm":
+        b["patches"] = torch.zeros((1, cfg.n_patches, cfg.vision_dim))
+    if cfg.family == "encdec":
+        b["frames"] = torch.zeros((1, cfg.n_frames, cfg.d_model))
+    logits, _ = api.logits(p, b, cfg)
+    families[cfg.family] = list(logits.shape)
 print(json.dumps({"after_import": after_import, "after_run": after_run,
-                  "after_serve": foreign(),
+                  "after_serve": after_serve, "after_zoo": foreign(),
+                  "families": families,
                   "rows": len(art.rows),
                   "fleet_nodes": len(art_fleet.rows[0].nodes),
                   "thr": [r.throughput for r in art.rows],
@@ -73,7 +92,10 @@ def test_import_and_run_leave_jax_and_reference_out_of_sys_modules():
     assert out.returncode == 0, out.stderr[-2000:]
     doc = json.loads(out.stdout.strip().splitlines()[-1])
     assert doc["after_import"] == [] and doc["after_run"] == []
-    assert doc["after_serve"] == []
+    assert doc["after_serve"] == [] and doc["after_zoo"] == []
+    assert sorted(doc["families"]) == ["dense", "encdec", "hybrid", "moe",
+                                       "ssm", "vlm"]
+    assert doc["families"]["vlm"][1] == 6 + 8
     assert doc["rows"] == 2 and all(t > 0 for t in doc["thr"])
     assert doc["fleet_nodes"] == 2
     assert doc["served"] == [3]

@@ -144,6 +144,40 @@ def test_param_specs_match_reference(arch):
     assert got == want
 
 
+def test_init_params_draws_the_same_bits_as_before():
+    """Each leaf's float32 draw is scaled in place now (one draw a leaf at
+    its peak, not a draw and a scaled copy); the bits and the draw order
+    (sorted keys, one ``randn`` a drawn leaf) are those of the scaled copy
+    made leaf by leaf from the same generator."""
+    specs = {"wq": port.ParamSpec((3, 64, 96), ("layers", "embed", None)),
+             "embed": port.ParamSpec((50, 64), ("vocab", "embed"),
+                                     init="embed"),
+             "n": port.ParamSpec((3, 64), ("layers", "embed"), init="ones"),
+             "r": port.ParamSpec((3, 64, 16), ("layers", "embed", None),
+                                 dtype=torch.float32),
+             "v": {"b": port.ParamSpec((7,), ("embed",)),
+                   "a": port.ParamSpec((2, 9), (None, None))}}
+    got = port.init_params(specs, torch.Generator().manual_seed(11))
+    gen = torch.Generator().manual_seed(11)
+
+    def old(spec):
+        if spec.init == "ones":
+            return torch.ones(spec.shape, dtype=spec.dtype)
+        dim = spec.shape[-1] if spec.init == "embed" or len(spec.shape) < 2 \
+            else spec.shape[-2]
+        draw = torch.randn(spec.shape, generator=gen, dtype=torch.float32)
+        return (draw * (1.0 / math.sqrt(dim))).to(spec.dtype)
+    want = {"embed": old(specs["embed"]), "n": old(specs["n"]),
+            "r": old(specs["r"])}
+    want["v"] = {"a": old(specs["v"]["a"]), "b": old(specs["v"]["b"])}
+    want["wq"] = old(specs["wq"])
+    for key in ("embed", "n", "r", "wq"):
+        assert got[key].dtype == specs[key].dtype
+        assert torch.equal(got[key], want[key]), key
+    assert torch.equal(got["v"]["a"], want["v"]["a"])
+    assert torch.equal(got["v"]["b"], want["v"]["b"])
+
+
 def test_init_params_scales_and_determinism():
     specs = {"embed": port.ParamSpec((512, 256), ("vocab", "embed"),
                                      init="embed"),
