@@ -36,13 +36,22 @@ and drives the port's paths, each in a counted window of its own:
     held against forward; the wkv6 kernel timed beside the model's
     ``wkv_chunked`` at rwkv6-3b's own recurrence inputs.
 
+  * training: qwen2.5-3b at full width and depth trained for 6 AdamW steps
+    of 2 x 2048 tokens through ``repro_torch.train.make_train_step``
+    (per-layer remat, the blockwise attention's custom backward, the state
+    donated leaf by leaf), the backward held against plain autograd at that
+    layer's shape; then the reference's learning test on the card,
+    ``examples/train_100m_torch.py`` (120 steps, its re-run, and a resume
+    check bit for bit under deterministic algorithms).
+
   * the system's own entry points: ``python -m benchmarks.run_torch``
     (the scenario suite, one scenario and ``--engine lsm --cores 4``, held
     cell by cell against the host loop; then every paper figure and the
     kernels' rows, the figures' grid cells held against the loop's), the
     grid bench (``benchmarks.torch_grid_bench``, every suite at the
     reference's sizes), the tail bench (``FULL``, beside the host loop)
-    and both examples (``examples/*_torch.py``).
+    and the kvstore, serving and quickstart examples
+    (``examples/*_torch.py``).
 
 It times the kernels and prints one JSON object per phase.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failing phase exits non-zero; there
@@ -103,6 +112,14 @@ from repro_torch.models import layers, rwkv6
 from repro_torch.models import transformer as tf
 from repro_torch.models import whisper as wh
 from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.configs.base import Shape
+from repro_torch.data.pipeline import DataConfig, prefetch, synthetic_batches
+from repro_torch.roofline.analysis import (active_params, count_params,
+                                           model_flops)
+from repro_torch.train import checkpoint as ckpt
+from repro_torch.train.train_step import (TrainHParams, init_train_state,
+                                          make_train_step)
+from repro_torch.tree import leaf_paths
 
 from benchmarks import cluster_bench_torch as cbench
 from benchmarks import kernels_bench_torch as kbench
@@ -195,6 +212,41 @@ SMOKE_PARITY_ARCHS = ("qwen2.5-3b", "starcoder2-3b", "deepseek-moe-16b",
 # rwkv6-3b's own recurrence inputs for the wkv6 timing: layer 0 of the
 # forward above, and of a B 8 x S 4096 token batch.
 WKV_MODEL_BIG = (8, 4096)
+
+# Training (``train_path``): qwen2.5-3b at its published width and depth
+# (36 layers, d 2048, 16/2 heads of 128, d_ff 11008, vocab 151 936, tied
+# embeddings; 3.09 B parameters, 6.17 GB in bfloat16), nothing cut, random
+# initial weights drawn on the card from --seed; AdamW with float32
+# moments, per-layer remat, 6 steps of B 2 x S 2048 synthetic tokens.  S
+# 2048 > attn_block_kv 1024 puts every layer's attention through the
+# blockwise forward and its custom backward.  warmup 1: with the default 200
+# the first steps' lr (0, then 1.5e-6) is below half a bfloat16 step of most
+# weights and nothing would move.
+TRAIN_ARCH = "qwen2.5-3b"
+TRAIN_B, TRAIN_S = 2, 2048
+TRAIN_HP = dict(peak_lr=3e-4, warmup=1, total_steps=6)
+TRAIN_STEPS = 6
+# The blockwise backward held against plain autograd of the same forward at
+# one layer of that model: B 2, S 2048, Hq 16, Hkv 2, D 128, causal, 1024-key
+# blocks.
+FLASH_BWD_SHAPE = (TRAIN_B, TRAIN_S, 16, 2, 128)
+# The training example (``train_example``): examples/train_100m_torch.py's
+# own run at the reference example's sizes, checkpoints every 50 steps.
+# The reference's learning criterion (tests/test_train.py: the mean of the
+# last 10 losses below the mean of the first 10 by more than 1.0) belongs to
+# its smoke run (qwen2.5-3b's smoke config, B 16 x S 48, 120 steps), which
+# runs here on the card as stated.  The reference's own example at these
+# arguments does not meet it (ROADMAP.md C26): the means of its first and
+# last 10 losses are 9.5001 and 9.0504 (examples/train_100m.py --steps 120
+# --batch 8 --seq 256, run on a CPU with the losses of every step kept).  The port's example is held to that run instead: its last-10
+# mean within EXAMPLE_LAST10_TOL of the reference's, and below its own
+# first-10 mean.
+EXAMPLE_ARGS = ("--steps", "120", "--batch", "8", "--seq", "256")
+EXAMPLE_RESUME_STEPS = 3
+EXAMPLE_REF_LAST10 = 9.050448989868164   # first 10: 9.500146675109864
+EXAMPLE_LAST10_TOL = 0.05
+LEARNS_HP = dict(peak_lr=1e-3, warmup=10, total_steps=120)
+LEARNS_BS = (16, 48)
 
 OUT_DIR = ROOT / "chiprun_out"
 PHASES = []
@@ -2079,6 +2131,415 @@ def phase_model_families(seed):
     return full
 
 
+# -- training ------------------------------------------------------------------
+
+
+def _flash_grads(fn, qkv, cot):
+    leaves = [t.clone().requires_grad_() for t in qkv]
+    out = fn(*leaves)
+    return torch.autograd.grad((out.float() * cot).sum(), leaves)
+
+
+def _grad_errs(got, want, causal):
+    """Per gradient: the largest ``|got - want|`` over the largest
+    ``|want|``, and the largest row error relative to the row (dq's rows at
+    position 0 left out under a causal mask: that query sees one key, and
+    its dq is 0 in exact arithmetic)."""
+    out = {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        g, w = g.float(), w.float()
+        scaled = float((g - w).abs().max()) / float(w.abs().max())
+        if name == "dq" and causal:
+            g, w = g[:, 1:], w[:, 1:]
+        out[name] = {"scaled_max_abs_err": scaled,
+                     "max_row_rel_err": cases.row_rel_err(g, w)}
+    return out
+
+
+def flash_bwd_check(seed):
+    """The blockwise attention's backward at qwen2.5-3b's layer shape
+    against plain autograd of the same forward loop on the card, as
+    ``tests/test_torch_flash_bwd.py`` holds it on the CPU.  float32: the
+    whole path within the ``FLASH_*`` float32 bounds (5e-5 of the largest
+    value, and each row within ``FLASH_ROW_TOL``).  bfloat16: the backward
+    fed the forward's float32 output as its residual, every row of dq, dk,
+    dv within ``FLASH_ROW_TOL`` and 3e-2 of the largest value; and the
+    whole path (the reference's bfloat16 ``out`` residual, ``ROADMAP.md``
+    C25): dk and dv rows within ``FLASH_ROW_TOL``, dq within 3e-2 of its
+    largest value, its worst row recorded.  Also the forward + backward
+    time of each beside plain autograd's."""
+    B, S, Hq, Hkv, D = FLASH_BWD_SHAPE
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    f32 = [torch.randn(s, generator=gen, device=DEV)
+           for s in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D))]
+    cot = torch.randn((B, S, Hq, D), generator=gen, device=DEV)
+    bkv = 1024
+    checks, bad = {}, []
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = [t.to(dtype) for t in f32]
+        name = str(dtype).split(".")[1]
+
+        def custom():
+            return _flash_grads(lambda q, k, v: layers.attention(
+                q, k, v, causal=True, block_kv=bkv), qkv, cot)
+
+        def plain():
+            return _flash_grads(lambda q, k, v: layers._flash_fwd(
+                q, k, v, True, 0, bkv)[0], qkv, cot)
+
+        got, want = custom(), plain()
+        rec = {"whole_path": _grad_errs(got, want, True)}
+        if dtype == torch.bfloat16:
+            out32, lse = layers._flash_fwd(*(t.float() for t in qkv), True,
+                                           0, bkv)
+            alone = layers._flash_bwd(*qkv, out32, lse, cot.to(dtype), True,
+                                      0, bkv)
+            rec["backward_f32_residual"] = _grad_errs(alone, want, True)
+            held = rec["backward_f32_residual"]
+            whole = rec["whole_path"]
+            tol = cases.tol("bfloat16")
+            for g, e in held.items():
+                if not (e["scaled_max_abs_err"] <= tol
+                        and e["max_row_rel_err"] <= FLASH_ROW_TOL):
+                    bad.append(f"bf16 {g} (float32 residual): {e}")
+            for g, e in whole.items():
+                if not e["scaled_max_abs_err"] <= tol or (
+                        g != "dq" and e["max_row_rel_err"] > FLASH_ROW_TOL):
+                    bad.append(f"bf16 {g} (whole path): {e}")
+            del alone, out32, lse
+        else:
+            tol = cases.tol("float32")
+            for g, e in rec["whole_path"].items():
+                if not (e["scaled_max_abs_err"] <= tol
+                        and e["max_row_rel_err"] <= FLASH_ROW_TOL):
+                    bad.append(f"float32 {g}: {e}")
+        rec["finite"] = all(bool(torch.isfinite(t).all()) for t in got)
+        if not rec["finite"]:
+            bad.append(f"{name}: non-finite gradients")
+        del got, want
+        torch.cuda.empty_cache()
+        rec["custom_ms"] = cuda_ms(custom, 3)
+        torch.cuda.reset_peak_memory_stats()
+        custom()
+        rec["custom_peak_bytes"] = torch.cuda.max_memory_allocated()
+        rec["plain_ms"] = cuda_ms(plain, 3)
+        torch.cuda.reset_peak_memory_stats()
+        plain()
+        rec["plain_peak_bytes"] = torch.cuda.max_memory_allocated()
+        checks[name] = rec
+        torch.cuda.empty_cache()
+    return checks, bad
+
+
+def _sample(t, n=1 << 16):
+    return t.detach().reshape(-1)[:n].clone()
+
+
+def _kernel_class(name):
+    n = name.lower()
+    if any(w in n for w in ("gemm", "cutlass", "xmma", "nvjet", "cublas")):
+        return "gemm"
+    if "reduce" in n:
+        return "reduce"
+    if "elementwise" in n or "vectorized" in n or "unrolled" in n:
+        return "elementwise"
+    if "memcpy" in n or "memset" in n or "copy" in n:
+        return "copy"
+    return "other"
+
+
+def profile_train_step(step, state, batch):
+    """One more step (a 7th, outside the 6 measured) under
+    ``torch.profiler``: the device's kernel time by class (GEMMs,
+    elementwise, reductions, copies, other) and the 12 costliest kernels,
+    beside the step's wall time; the device idle share is 1 - kernel time /
+    wall time."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_class, kernels = {}, []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        if not us or ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        c = _kernel_class(ev.key)
+        by_class[c] = by_class.get(c, 0.0) + us / 1e6
+        kernels.append((us / 1e6, ev.count, ev.key[:120]))
+    busy = sum(by_class.values())
+    kernels.sort(reverse=True)
+    return {"wall_s": wall, "device_kernel_s": busy,
+            "device_idle_share": 1.0 - busy / wall if busy else None,
+            "kernel_s_by_class": by_class,
+            "top_kernels": [{"s": s_, "count": n, "name": k}
+                            for s_, n, k in kernels[:12]],
+            "note": "profiled, so slower than the measured steps"}
+
+
+def phase_train_path(seed):
+    """qwen2.5-3b trained at full width and depth on the card: 6 AdamW steps
+    through ``make_train_step`` (per-layer remat, the state donated leaf by
+    leaf) on ``synthetic_batches`` prefetched to the card, in a counted
+    window; then the blockwise backward's check at its layer shape.  Fails
+    unless every loss and grad norm is finite, the first loss is below
+    2 ln V (``tests/test_models.py``'s bound), every weight matrix has
+    moved after step 2, no hand-written kernel ran (as in the reference)
+    and the backward check holds."""
+    cfg = ARCHS[TRAIN_ARCH]
+    api = zoo.get_api(cfg)
+    specs = api.param_specs(cfg)
+    n_params, n_active = count_params(specs), active_params(cfg, specs)
+    hp = TrainHParams(**TRAIN_HP)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    t0 = time.perf_counter()
+    state = init_train_state(layers.init_params(specs, gen), hp)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    before = {"/".join(p): _sample(t)
+              for p, t in leaf_paths(state["params"])}
+    marks = []
+
+    def mark(grads):
+        """The step's hook between the gradients and AdamW: the time the
+        forward and backward took (synchronised), for the optimiser's
+        share."""
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        return grads
+
+    step = make_train_step(api, cfg, hp, grad_transform=mark)
+    data = prefetch(synthetic_batches(DataConfig(
+        global_batch=TRAIN_B, seq_len=TRAIN_S, vocab=cfg.vocab, seed=seed)),
+        device=DEV)
+    reset_counts()
+    step_s, grad_s, losses, gnorms, lrs, moved = [], [], [], [], [], {}
+    for i in range(TRAIN_STEPS):
+        batch = next(data)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        grad_s.append(marks[-1] - t0)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        lrs.append(float(m["lr"]))
+        if i == 1:
+            for p, t in leaf_paths(state["params"]):
+                key = "/".join(p)
+                moved[key] = float((_sample(t) != before[key]).float()
+                                   .mean())
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    profile = profile_train_step(step, state, next(data))
+    del state, data, batch, m, before
+    torch.cuda.empty_cache()
+    warm = sorted(step_s[1:])
+    med = warm[len(warm) // 2]
+    tokens = TRAIN_B * TRAIN_S
+    flops = model_flops(cfg, Shape("train_path", TRAIN_S, TRAIN_B, "train"),
+                        n_params, n_active)
+    t0 = time.perf_counter()
+    bwd, bad = flash_bwd_check(seed)
+    bwd_s = time.perf_counter() - t0
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        bad.append(f"non-finite loss or grad norm: {losses} {gnorms}")
+    if not losses[0] < 2.0 * math.log(cfg.vocab):
+        bad.append(f"first loss {losses[0]} >= 2 ln V")
+    still = [k for k, f in moved.items()
+             if k.split("/")[-1] not in ("attn_norm", "mlp_norm",
+                                         "final_norm") and f == 0.0]
+    if still:
+        bad.append(f"weights unmoved after step 2: {still}")
+    if any(launches.values()):
+        bad.append(f"the training path launched a hand-written kernel: "
+                   f"{launches}")
+    rec = dict(
+        arch=TRAIN_ARCH, n_layers=cfg.n_layers, d_model=cfg.d_model,
+        vocab=cfg.vocab, n_params=n_params, batch=TRAIN_B, seq=TRAIN_S,
+        steps=TRAIN_STEPS, hparams=TRAIN_HP, remat=hp.remat,
+        init_s=init_s, init_peak_allocated_bytes=init_peak,
+        step_s=step_s, first_step_s=step_s[0], median_step_s_2_to_6=med,
+        forward_backward_s=grad_s,
+        optimizer_s=[a - b for a, b in zip(step_s, grad_s)],
+        profiled_step=profile,
+        tokens_per_step=tokens, tokens_per_s=tokens / med,
+        model_flops_per_step=flops,
+        mfu=flops / (med * PEAK_FLOP_PER_S["bfloat16"]),
+        mfu_peak="989e12 bf16 dense FLOP/s", peak_allocated_bytes=peak,
+        loss=losses, grad_norm=gnorms, lr=lrs,
+        loss_bound_2lnV=2.0 * math.log(cfg.vocab),
+        frac_moved_after_step_2=moved, launches=launches,
+        flash_bwd=dict(shape=dict(zip(("B", "S", "Hq", "Hkv", "D"),
+                                      FLASH_BWD_SHAPE)), block_kv=1024,
+                       causal=True, seconds=bwd_s, **bwd))
+    emit("train_path", **rec)
+    if bad:
+        fail("train_path: " + "; ".join(bad))
+    return rec
+
+
+def _load_example(name):
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def resume_check(out_dir):
+    """The training example's model on the card, deterministic algorithms
+    on: 6 steps straight against 3 steps, a checkpoint, a restore and 3
+    more steps.  Prints one JSON line: the leaves that differ (none when
+    the two runs are bit-equal).  Run in a process of its own, whose
+    ``CUBLAS_WORKSPACE_CONFIG`` is set before CUDA starts."""
+    torch.use_deterministic_algorithms(True)
+    ex = _load_example("train_100m_torch")
+    cfg = ex.CFG_100M
+    api = zoo.get_api(cfg)
+    n = 2 * EXAMPLE_RESUME_STEPS
+    hp = ex.hparams(n)
+    step = make_train_step(api, cfg, hp)
+    batch, seq = int(EXAMPLE_ARGS[3]), int(EXAMPLE_ARGS[5])
+
+    def data(start):
+        return prefetch(synthetic_batches(DataConfig(
+            global_batch=batch, seq_len=seq, vocab=cfg.vocab, seed=0),
+            start), device=DEV)
+
+    def fresh():
+        gen = torch.Generator(device=DEV).manual_seed(0)
+        return init_train_state(layers.init_params(api.param_specs(cfg),
+                                                   gen), hp)
+
+    a, it = fresh(), data(0)
+    for _ in range(n):
+        a, _ = step(a, next(it))
+    b, it = fresh(), data(0)
+    for _ in range(EXAMPLE_RESUME_STEPS):
+        b, _ = step(b, next(it))
+    ckpt.save(out_dir, EXAMPLE_RESUME_STEPS, b)
+    like = layers.map_tree(lambda t: torch.empty_like(t, device="meta"), b)
+    del b
+    b = ckpt.restore(out_dir, EXAMPLE_RESUME_STEPS, like, device=DEV)
+    it = data(EXAMPLE_RESUME_STEPS)
+    for _ in range(EXAMPLE_RESUME_STEPS):
+        b, _ = step(b, next(it))
+    diff = {}
+    for (p, x), (_, y) in zip(leaf_paths(a), leaf_paths(b)):
+        if not torch.equal(x, y):
+            diff["/".join(map(str, p))] = float(
+                (x.float() - y.float()).abs().max())
+    print(json.dumps({"resume_check": {
+        "steps": n, "checkpoint_at": EXAMPLE_RESUME_STEPS,
+        "n_leaves": len(leaf_paths(a)), "differing_leaves": diff,
+        "deterministic_algorithms":
+            torch.are_deterministic_algorithms_enabled(),
+        "cublas_workspace_config":
+            os.environ.get("CUBLAS_WORKSPACE_CONFIG")}}), flush=True)
+
+
+def smoke_learns():
+    """The reference's ``test_trainer_learns`` on the card: ``Trainer`` on
+    qwen2.5-3b's smoke config, B 16 x S 48, 120 steps, no checkpoints."""
+    import tempfile
+    from repro_torch.train.trainer import Trainer
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = Trainer(smoke_config(ARCHS[TRAIN_ARCH]),
+                     TrainHParams(**LEARNS_HP), ckpt_dir=tmp, ckpt_every=0,
+                     device=DEV)
+        tr.hp_global_batch, tr.hp_seq_len = LEARNS_BS
+        reset_counts()
+        t0 = time.perf_counter()
+        _, log = tr.fit(LEARNS_HP["total_steps"], resume=False)
+        losses = [float(m["loss"]) for m in log]
+        wall = time.perf_counter() - t0
+    return {"steps": len(log), "batch": LEARNS_BS, "hparams": LEARNS_HP,
+            "first10": float(np.mean(losses[:10])),
+            "last10": float(np.mean(losses[-10:])), "wall_s": wall,
+            "launches": counts()}
+
+
+def phase_train_example():
+    """Training at the examples' sizes on the card.  First the reference's
+    learning test (:func:`smoke_learns`), held to its criterion (the mean
+    of the last 10 losses below the mean of the first 10 by more than 1.0,
+    ``tests/test_train.py``).  Then ``examples/train_100m_torch.py`` through
+    its ``main`` in a counted window: 120 steps of B 8 x S 256 with
+    checkpoints every 50 into a temporary directory, its last-10 mean held
+    to the reference example's at the same arguments
+    (``EXAMPLE_REF_LAST10``; C26); a second run must find nothing to do.
+    Then the resume check (:func:`resume_check`) in a process of its own,
+    which must be bit-equal.  No hand-written kernel may run."""
+    import tempfile
+    ex = _load_example("train_100m_torch")
+    bad = []
+    learns = smoke_learns()
+    if not learns["last10"] < learns["first10"] - 1.0:
+        bad.append(f"the reference's learning criterion failed: {learns}")
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = [*EXAMPLE_ARGS, "--ckpt", os.path.join(tmp, "ckpt"),
+                "--device", "cuda"]
+        buf = io.StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            log = ex.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts()
+        losses = [float(m["loss"]) for m in log]
+        first10, last10 = np.mean(losses[:10]), np.mean(losses[-10:])
+        saved = sorted(os.listdir(os.path.join(tmp, "ckpt")))
+        again = io.StringIO()
+        with contextlib.redirect_stdout(again):
+            log2 = ex.main(argv)
+        rerun = again.getvalue().splitlines()
+        env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+        t1 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--resume-check",
+             os.path.join(tmp, "resume")], capture_output=True, text=True,
+            env=env, timeout=600, cwd=str(ROOT))
+        resume_s = time.perf_counter() - t1
+    if len(log) != 120 or not (
+            last10 < first10 and
+            abs(last10 - EXAMPLE_REF_LAST10) <= EXAMPLE_LAST10_TOL):
+        bad.append(f"the example's losses: first 10 {first10}, last 10 "
+                   f"{last10} over {len(log)} steps (the reference's last "
+                   f"10: {EXAMPLE_REF_LAST10} +- {EXAMPLE_LAST10_TOL})")
+    if log2 or not rerun or not rerun[-1].startswith("nothing to do"):
+        bad.append(f"the re-run did not resume to nothing to do: {rerun}")
+    if any(launches.values()):
+        bad.append(f"the training example launched a hand-written kernel: "
+                   f"{launches}")
+    resume = None
+    if res.returncode != 0:
+        bad.append(f"resume check exited {res.returncode}: "
+                   f"{res.stderr[-3000:]}")
+    else:
+        resume = json.loads(res.stdout.strip().splitlines()[-1])[
+            "resume_check"]
+        if resume["differing_leaves"]:
+            bad.append(f"resume not bit-equal: {resume['differing_leaves']}")
+    emit("train_example", smoke_learns=learns, argv=list(EXAMPLE_ARGS),
+         wall_s=wall, steps=len(log), loss_first10=float(first10),
+         loss_last10=float(last10), ref_loss_last10=EXAMPLE_REF_LAST10,
+         last10_tol=EXAMPLE_LAST10_TOL, loss=losses[::10], checkpoints=saved,
+         stdout=buf.getvalue().splitlines(), rerun_stdout=rerun,
+         launches=launches, resume=resume, resume_s=resume_s)
+    if bad:
+        fail("train_example: " + "; ".join(bad))
+
+
 # -- the system's own entry points ----------------------------------------------
 
 #: Where the loop run of the paper figures memoizes its cells, so that every
@@ -2573,12 +3034,13 @@ def phase_tail_bench():
 
 
 def phase_examples():
-    """``examples/kvstore_demo_torch.py`` and ``serve_tiered_kv_torch.py``
-    on the card, each through its ``main`` in a counted window; a non-zero
-    exit or an exception fails the run."""
+    """``examples/kvstore_demo_torch.py``, ``serve_tiered_kv_torch.py`` and
+    ``quickstart_torch.py`` on the card, each through its ``main`` in a
+    counted window; a non-zero exit or an exception fails the run."""
     out = {}
     for name, want in (("kvstore_demo_torch", "fused_steps"),
-                       ("serve_tiered_kv_torch", "paged_decode_attention")):
+                       ("serve_tiered_kv_torch", "paged_decode_attention"),
+                       ("quickstart_torch", "paged_decode_attention")):
         spec = importlib.util.spec_from_file_location(
             name, ROOT / "examples" / f"{name}.py")
         mod = importlib.util.module_from_spec(spec)
@@ -2602,6 +3064,10 @@ def phase_examples():
                          stdout=buf.getvalue().splitlines())
     if "on cuda)" not in out["serve_tiered_kv_torch"]["stdout"][0]:
         fail(f"serve example: {out['serve_tiered_kv_torch']['stdout'][0]}")
+    quick = out["quickstart_torch"]["stdout"]
+    if quick[-1] != "quickstart OK" or not any(
+            "finite=True (on cuda)" in ln for ln in quick):
+        fail(f"quickstart: {quick[-4:]}")
     emit("examples", **out)
     return {k: v["launches"] for k, v in out.items()}
 
@@ -2612,7 +3078,14 @@ def main():
                     help="seed of the served model's weights and prompts, "
                          "and of the kernel checks' and bench's inputs at "
                          "full width")
+    ap.add_argument("--resume-check", metavar="DIR",
+                    help="only the training example's resume check, "
+                         "checkpointing into DIR (run by the train_example "
+                         "phase in a process of its own)")
     args = ap.parse_args()
+    if args.resume_check:
+        resume_check(args.resume_check)
+        return
     t_all = time.perf_counter()
     torch.cuda.set_device(0)
     card, sm_mhz = phase_card()
@@ -2790,6 +3263,12 @@ def main():
         for name, m in rw["wkv_model_shape"].items()}
     wkv["model_shape"]["plain"] = "models.rwkv6.wkv_chunked (float32)"
 
+    # training: qwen2.5-3b at full width, then the training example
+    phase_train_path(args.seed)
+    torch.cuda.empty_cache()
+    phase_train_example()
+    torch.cuda.empty_cache()
+
     # the system's own entry points, each phase in a counted window
     cli_launches = phase_cli()
     figs_launches = phase_paper_figs()
@@ -2808,6 +3287,8 @@ def main():
         entry["launches_paper_figs"] = figs_launches[name]
     paged["launches_serve_example"] = example_launches[
         "serve_tiered_kv_torch"]["paged_decode_attention"]
+    paged["launches_quickstart_example"] = example_launches[
+        "quickstart_torch"]["paged_decode_attention"]
 
     kernels = [fused, tok, paged, flash, wkv]
     total_s = time.perf_counter() - t_all

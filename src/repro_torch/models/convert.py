@@ -14,7 +14,7 @@ import torch
 
 from ..core.sim.replay_torch import resolve_device
 
-__all__ = ["params_from_numpy", "tensor_from_numpy"]
+__all__ = ["params_from_numpy", "tensor_from_numpy", "train_state_from_numpy"]
 
 
 def tensor_from_numpy(arr, device="cpu") -> torch.Tensor:
@@ -34,6 +34,17 @@ def params_from_numpy(tree, device=None):
     tensors on ``device`` (``None``: the card, ``RuntimeError`` without one;
     pass ``device="cpu"`` for the host)."""
     return _to_tensors(tree, resolve_device(device))
+
+
+def train_state_from_numpy(state, device=None) -> dict:
+    """The reference's train state (``{"params", "opt": {"m", "v",
+    "count"}}``, each leaf ``np.asarray``'d) -> the port's, bit for bit, on
+    ``device`` (``None``: the card, ``RuntimeError`` without one)."""
+    if set(state) != {"params", "opt"} or \
+            set(state["opt"]) != {"m", "v", "count"}:
+        raise ValueError("a train state is {'params', 'opt': {'m', 'v', "
+                         f"'count'}}}}; got keys {sorted(state)}")
+    return params_from_numpy(state, device)
 
 
 def _to_tensors(tree, device):

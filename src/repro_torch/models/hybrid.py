@@ -18,7 +18,8 @@ import torch
 from ..core.sim.replay_torch import resolve_device
 from . import mamba2
 from . import transformer as tf
-from .layers import DTYPE, ParamSpec, embed, map_tree, rms_norm, take_layer
+from .layers import (DTYPE, ParamSpec, embed, layer_views, map_tree,
+                     remat_call, rms_norm, take_layer)
 
 __all__ = ["param_specs", "forward", "decode_step", "init_cache", "plan_layers"]
 
@@ -75,15 +76,21 @@ def _head(params, x):
 def forward(params, tokens, cfg, prefix_embeds=None, remat: bool = True,
             last_only: bool = False):
     """Teacher-forced forward -> logits (B, S, vocab).  ``prefix_embeds``
-    and ``remat`` are accepted and ignored, as in the reference."""
+    is accepted and ignored, as in the reference; ``remat`` recomputes each
+    Mamba layer and each shared-attention site in the backward."""
     x = embed(params, tokens)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device).expand(B, S)
+    mamba_body = lambda x, lw: mamba2.block_forward(x, lw, cfg)[0]
+    attn_body = lambda x: tf._layer_body(x, params["shared_attn"], cfg,
+                                         positions)
+    n_mamba, _, _ = plan_layers(cfg)
+    mws = layer_views(params["mamba"], n_mamba)
     for start, end, attn_after in _segments(cfg):
         for li in range(start, end):
-            x, _ = mamba2.block_forward(x, take_layer(params["mamba"], li), cfg)
+            x = remat_call(mamba_body, x, mws[li], remat=remat)
         if attn_after:
-            x = tf._layer_body(x, params["shared_attn"], cfg, positions)
+            x = remat_call(attn_body, x, remat=remat)
     if last_only:
         x = x[:, -1:]
     return _head(params, x)

@@ -17,9 +17,12 @@ Conventions
 * The layer stack is a Python loop over the leading ``layers`` axis (PyTorch
   runs eagerly; nothing is scanned).
 
+Blockwise attention has the reference's custom backward (``_FlashFn``, the
+counterpart of its custom-VJP ``_flash``): only ``out`` and the
+float32 log-sum-exp are kept for it, and each KV block is recomputed.
+
 Not ported yet: the sharding helpers (``shard``, ``mesh_context``,
-``param_shardings``, ``logical_to_pspec``; ROADMAP A16) and the hand-written
-backward of blockwise attention (the training slice, A15).  ``attention``
+``param_shardings``, ``logical_to_pspec``; ROADMAP A16).  ``attention``
 takes no ``unroll``: it only shaped the reference's scanned loop.
 """
 from __future__ import annotations
@@ -30,12 +33,14 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 __all__ = [
     "ParamSpec",
     "init_params",
     "map_tree",
     "take_layer",
+    "layer_views",
     "embed",
     "rms_norm",
     "layer_norm",
@@ -43,6 +48,7 @@ __all__ = [
     "attention",
     "decode_attention",
     "mlp",
+    "remat_call",
     "DTYPE",
 ]
 
@@ -106,6 +112,27 @@ def take_layer(tree, i: int):
     return map_tree(lambda a: a[i], tree)
 
 
+def layer_views(tree, n: int) -> list:
+    """``[take_layer(tree, i) for i in range(n)]``, through one ``unbind`` a
+    leaf: the backward then stacks a leaf's ``n`` gradients once, where
+    ``n`` separate views would each add a zero-padded gradient of the whole
+    stacked leaf (``n`` times its size, for each layer)."""
+    unbound = map_tree(lambda a: a.unbind(0), tree)
+    return [map_tree(lambda views: views[i], unbound) for i in range(n)]
+
+
+def remat_call(fn, *args, remat: bool = True):
+    """``fn(*args)``, its activations recomputed in the backward when
+    ``remat`` (the reference's checkpointing of a layer body):
+    only the arguments and the result are kept.  With grad mode off there
+    is no backward, so ``fn`` runs as it is.  Nothing random or stateful
+    may run inside ``fn``: the recomputation must give the first pass's
+    bits."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
     """Rows of ``params["embed"]`` (in :data:`DTYPE`) for integer tokens."""
     return params["embed"].to(DTYPE)[tokens.long()]
@@ -164,7 +191,8 @@ def attention(
 
     ``S <= block_kv``: one dense block.  Otherwise KV is processed in chunks
     of ``block_kv`` with an online softmax, so the S x S score matrix is never
-    formed (the forward of the reference's blockwise attention).  Query heads
+    formed, forward or backward (the reference's blockwise attention and
+    its custom backward, :class:`_FlashFn`).  Query heads
     stay grouped (B, S, Hkv, rep, D), so repeated KV is never formed.
     """
     B, S, Hq, D = q.shape
@@ -175,7 +203,7 @@ def attention(
         qg = q.reshape(B, S, Hkv, rep, D).float() * scale
         return _attn_dense(qg, k, v, causal, sliding_window).to(q.dtype)
     win = 0 if sliding_window is None else int(sliding_window)
-    return _flash_fwd(q, k, v, bool(causal), win, int(block_kv))
+    return _FlashFn.apply(q, k, v, bool(causal), win, int(block_kv))
 
 
 def _flash_mask(q_pos, kv_pos, causal: bool, win: int, S: int):
@@ -187,17 +215,26 @@ def _flash_mask(q_pos, kv_pos, causal: bool, win: int, S: int):
     return mask
 
 
-def _flash_fwd(q, k, v, causal, win, block_kv):
-    B, S, Hq, D = q.shape
-    Hkv = k.shape[2]
-    rep = Hq // Hkv
-    scale = 1.0 / math.sqrt(D)
-    qg = q.reshape(B, S, Hkv, rep, D).float() * scale
+def _kv_blocks(k, v, block_kv):
+    """k, v padded with zeros to a whole number of ``block_kv`` rows."""
+    S = k.shape[1]
     nb = (S + block_kv - 1) // block_kv
     pad = nb * block_kv - S
     if pad:
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    return k, v, nb
+
+
+def _flash_fwd(q, k, v, causal, win, block_kv):
+    """The blockwise forward: ``(out (B,S,Hq,D) in q's dtype, lse
+    (B,Hkv,rep,S) float32)``, ``lse = m + log(l)`` of each query row."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    rep = Hq // Hkv
+    scale = 1.0 / math.sqrt(D)
+    qg = q.reshape(B, S, Hkv, rep, D).float() * scale
+    k, v, nb = _kv_blocks(k, v, block_kv)
     dev = q.device
     q_pos = torch.arange(S, device=dev)
     acc = torch.zeros((B, Hkv, rep, S, D), dtype=torch.float32, device=dev)
@@ -218,8 +255,70 @@ def _flash_fwd(q, k, v, causal, win, block_kv):
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.einsum("bhrqk,bkhd->bhrqd", p, vb)
         m = m_new
-    out = acc / torch.clamp(l, min=1e-37)[..., None]      # (B,Hkv,rep,S,D)
-    return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, D).to(q.dtype)
+    l_safe = torch.clamp(l, min=1e-37)
+    out = acc / l_safe[..., None]                         # (B,Hkv,rep,S,D)
+    lse = m + torch.log(l_safe)                           # (B,Hkv,rep,S)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, D).to(q.dtype), lse
+
+
+def _flash_bwd(q, k, v, out, lse, g, causal, win, block_kv):
+    """The reference's blockwise backward (``_flash_bwd``): each KV block's
+    probabilities are recomputed from ``lse``; dq accumulates over blocks,
+    dk and dv are a block's own.  Returns (dq, dk, dv) in the inputs'
+    dtypes."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    rep = Hq // Hkv
+    scale = 1.0 / math.sqrt(D)
+    qg = q.reshape(B, S, Hkv, rep, D).float()
+    do = g.reshape(B, S, Hkv, rep, D).float().permute(0, 2, 3, 1, 4)
+    of = out.reshape(B, S, Hkv, rep, D).float().permute(0, 2, 3, 1, 4)
+    delta = torch.sum(do * of, dim=-1)                   # (B,Hkv,rep,S)
+    kp, vp, nb = _kv_blocks(k, v, block_kv)
+    dev = q.device
+    q_pos = torch.arange(S, device=dev)
+    dq = torch.zeros((B, S, Hkv, rep, D), dtype=torch.float32, device=dev)
+    dks, dvs = [], []
+    for blk in range(nb):
+        kf = kp[:, blk * block_kv:(blk + 1) * block_kv].float()
+        vf = vp[:, blk * block_kv:(blk + 1) * block_kv].float()
+        kv_pos = blk * block_kv + torch.arange(block_kv, device=dev)
+        s_ij = torch.einsum("bqhrd,bkhd->bhrqk", qg * scale, kf)
+        mask = _flash_mask(q_pos, kv_pos, causal, win, S)
+        p = torch.where(mask[None, None, None],
+                        torch.exp(s_ij - lse[..., None]), 0.0)
+        del s_ij
+        dvs.append(torch.einsum("bhrqk,bhrqd->bkhd", p, do))
+        dp = torch.einsum("bhrqd,bkhd->bhrqk", do, vf)
+        ds = p * (dp - delta[..., None]) * scale
+        del p, dp
+        dq = dq + torch.einsum("bhrqk,bkhd->bqhrd", ds, kf)
+        dks.append(torch.einsum("bhrqk,bqhrd->bkhd", ds, qg))
+        del ds
+    dk = torch.cat(dks, dim=1)[:, :S]
+    dv = torch.cat(dvs, dim=1)[:, :S]
+    return (dq.reshape(B, S, Hq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+class _FlashFn(torch.autograd.Function):
+    """Blockwise attention with the reference's custom VJP: the residuals
+    are ``out`` (q's dtype) and the float32 ``lse``, never an S x S
+    tensor; the backward recomputes each block."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, win, block_kv):
+        out, lse = _flash_fwd(q, k, v, causal, win, block_kv)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, win, block_kv)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, out, lse, g, *ctx.args)
+        return dq, dk, dv, None, None, None
 
 
 def _attn_dense(qg, k, v, causal, sliding_window):

@@ -17,7 +17,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .layers import DTYPE, ParamSpec, embed, mlp, take_layer
+from .layers import (DTYPE, ParamSpec, embed, layer_views, mlp, remat_call,
+                     take_layer)
 from . import transformer as tf
 
 __all__ = ["param_specs", "forward", "decode_step", "init_cache", "moe_mlp",
@@ -161,17 +162,16 @@ def _layer_body(x, lw, cfg, positions):
 
 def forward(params, tokens, cfg, prefix_embeds=None, remat: bool = True,
             last_only: bool = False):
-    """Returns (logits, aux_loss_mean over layers).  ``remat`` is accepted
-    and ignored."""
+    """Returns (logits, aux_loss_mean over layers).  ``remat`` recomputes
+    each layer in the backward."""
     x = embed(params, tokens)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(DTYPE), x], dim=1)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     auxes = []
-    for li in range(cfg.n_layers):
-        x, aux = _layer_body(x, take_layer(params["layers"], li), cfg,
-                             positions)
+    for lw in layer_views(params["layers"], cfg.n_layers):
+        x, aux = remat_call(_layer_body, x, lw, cfg, positions, remat=remat)
         auxes.append(aux)
     if last_only:
         x = x[:, -1:]

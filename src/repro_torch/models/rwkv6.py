@@ -12,8 +12,9 @@ explicitly per (Q, Q, Dh); every exponent is a difference of a monotone
 cumulative log-decay, hence <= 0, so it is the recurrence, float32-stable,
 with no clamping.  Decode is the O(1) per-token state update.  As in the
 reference, the model runs :func:`wkv_chunked` and never the wkv6 kernel
-(``kernels.ops.wkv6``).  The layer stack is a Python loop; ``remat`` and
-``unroll`` are accepted and ignored.
+(``kernels.ops.wkv6``).  The layer stack is a Python loop; ``remat``
+recomputes each layer in the backward, and ``unroll`` is accepted and
+ignored.
 """
 from __future__ import annotations
 
@@ -21,7 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from ..core.sim.replay_torch import resolve_device
-from .layers import DTYPE, ParamSpec, embed, layer_norm, take_layer
+from .layers import (DTYPE, ParamSpec, embed, layer_norm, layer_views,
+                     remat_call, take_layer)
 
 __all__ = ["param_specs", "forward", "decode_step", "init_state",
            "wkv_chunked"]
@@ -223,8 +225,9 @@ def forward(params, tokens, cfg, prefix_embeds=None, remat: bool = True,
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(DTYPE), x], dim=1)
     x = layer_norm(x, params["ln_in"], params["ln_in_b"])
-    for li in range(cfg.n_layers):
-        x, _ = _layer(x, take_layer(params["layers"], li), cfg)
+    body = lambda x, lw: _layer(x, lw, cfg)[0]
+    for lw in layer_views(params["layers"], cfg.n_layers):
+        x = remat_call(body, x, lw, remat=remat)
     if last_only:
         x = x[:, -1:]
     return _head(params, x)

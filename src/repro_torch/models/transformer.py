@@ -9,10 +9,11 @@ llava-next: RMSNorm/LayerNorm, SwiGLU/GELU FFN, QKV bias, sliding-window
 attention, tied embeddings.
 
 The layer stack is a Python loop over the stacked ``layers`` parameters.
-``forward`` takes the reference's ``remat`` and does nothing with it: there
-is no backward yet.  The reference's ``remat_groups`` branch scans the same
-layers in groups (a different grouping of the same arithmetic for its
-backward), so here it is the one loop.
+``forward(remat=True)`` recomputes each layer in the backward, as the
+reference's checkpointing of its scanned layer body; with
+``cfg.remat_groups = G > 1`` the layers also run in G checkpointed groups
+(two-level remat: only the G group boundaries stay alive, and a group's
+layer boundaries while its backward runs).
 """
 from __future__ import annotations
 
@@ -29,7 +30,9 @@ from .layers import (
     decode_attention,
     embed,
     layer_norm,
+    layer_views,
     mlp,
+    remat_call,
     rms_norm,
     rope,
     take_layer,
@@ -156,14 +159,31 @@ def forward(params: dict, tokens: torch.Tensor, cfg,
 
     ``prefix_embeds`` (B, S_pre, d) go in front of the token embeddings
     (the VLM's projected patches); ``last_only`` applies the head to the
-    final position only.  ``remat`` is accepted and ignored."""
+    final position only.  ``remat`` recomputes each layer in the backward
+    (and ``cfg.remat_groups`` adds the group level, as in the reference)."""
     x = embed(params, tokens)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(DTYPE), x], dim=1)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
-    for li in range(cfg.n_layers):
-        x = _layer_body(x, layer_params(params, li), cfg, positions)
+
+    lws = layer_views(params["layers"], cfg.n_layers)
+
+    def layers(x, start, end):
+        for li in range(start, end):
+            x = remat_call(_layer_body, x, lws[li], cfg, positions,
+                           remat=remat)
+        return x
+
+    G = cfg.remat_groups
+    if G > 1 and cfg.n_layers % G == 0 and not cfg.unroll_layers:
+        # 2-level ("sqrt") remat: only the G group-boundary activations are
+        # saved; each group's layers are recomputed during its backward.
+        per = cfg.n_layers // G
+        for g in range(G):
+            x = remat_call(layers, x, g * per, (g + 1) * per)
+    else:
+        x = layers(x, 0, cfg.n_layers)
     if last_only:
         x = x[:, -1:]
     return _head(params, x, cfg)

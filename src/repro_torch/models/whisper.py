@@ -8,7 +8,8 @@ transformer with sinusoidal positions.  Decoder: causal self-attention
 (learned positions) + cross-attention to the encoder output + GELU FFN
 (the tanh approximation, the reference's GELU), all pre-LN.  The head is
 tied to the vocabulary-padded embedding, so logits have
-:func:`padded_vocab` columns.
+:func:`padded_vocab` columns.  ``remat`` recomputes each encoder and
+decoder layer in the backward, as the reference does.
 """
 from __future__ import annotations
 
@@ -25,6 +26,8 @@ from .layers import (
     decode_attention,
     embed,
     layer_norm,
+    layer_views,
+    remat_call,
     take_layer,
 )
 
@@ -131,12 +134,15 @@ def encode(params, frames, cfg, remat: bool = True):
     """frames: (B, T, d_model) precomputed frame embeddings (conv stub)."""
     x = frames.to(DTYPE) + _sinusoid(frames.shape[1], cfg.d_model,
                                      frames.device)[None]
-    for li in range(cfg.n_layers):
-        lw = take_layer(params["enc"], li)
+
+    def body(x, lw):
         h = layer_norm(x, lw["ln1"], lw["ln1_b"])
         x = x + _mha(h, h, lw, cfg, causal=False)
         h = layer_norm(x, lw["ln2"], lw["ln2_b"])
-        x = x + _ffn(h, lw)
+        return x + _ffn(h, lw)
+
+    for lw in layer_views(params["enc"], cfg.n_layers):
+        x = remat_call(body, x, lw, remat=remat)
     return layer_norm(x, params["ln_enc"], params["ln_enc_b"])
 
 
@@ -152,14 +158,17 @@ def forward(params, tokens, cfg, frames=None, remat: bool = True,
     enc_out = encode(params, frames, cfg, remat)
     B, S = tokens.shape
     x = embed(params, tokens) + params["pos_dec"][:S][None]
-    for li in range(cfg.n_layers):
-        lw = take_layer(params["dec"], li)
+
+    def body(x, lw):
         h = layer_norm(x, lw["ln1"], lw["ln1_b"])
         x = x + _mha(h, h, lw, cfg, causal=True)
         h = layer_norm(x, lw["lnx"], lw["lnx_b"])
         x = x + _mha(h, enc_out, lw, cfg, prefix="x_")
         h = layer_norm(x, lw["ln2"], lw["ln2_b"])
-        x = x + _ffn(h, lw)
+        return x + _ffn(h, lw)
+
+    for lw in layer_views(params["dec"], cfg.n_layers):
+        x = remat_call(body, x, lw, remat=remat)
     if last_only:
         x = x[:, -1:]
     return _head(params, x)

@@ -13,7 +13,8 @@ Every family exposes the same four entry points through :func:`get_api`:
 ``device`` (``None``: the card, ``RuntimeError`` without one; pass
 ``device="cpu"`` for the host); the ssm family ignores ``max_len`` and the
 encdec family adds ``cfg.n_frames`` cross-attention slots, as in the
-reference.  ``remat`` is accepted and ignored (there is no backward yet).
+reference.  ``logits(..., remat=True)`` recomputes each layer in the
+backward (training, :mod:`repro_torch.train`).
 """
 from __future__ import annotations
 

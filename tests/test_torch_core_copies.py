@@ -242,3 +242,31 @@ def test_legacy_shims_warn_and_export_the_references_names(shim, home,
         if hasattr(target, name):
             assert got is getattr(target, name), name
     assert getattr(core, shim) is mod      # lazy attribute access
+
+
+#: numpy-only definitions the port copies verbatim into modules of its own
+#: (the rest of those modules is PyTorch: ``prefetch``, ``elastic_restore``)
+VERBATIM_DEFS = {
+    "train/ft.py": ("StragglerDetector", "RestartableLoop"),
+    "data/pipeline.py": ("DataConfig", "_host_slice", "synthetic_batches",
+                         "file_batches"),
+}
+
+
+def _definitions(path: Path) -> dict[str, str]:
+    text = path.read_text()
+    return {node.name: ([ast.unparse(d) for d in node.decorator_list],
+                        ast.get_source_segment(text, node, padded=True))
+            for node in ast.parse(text).body
+            if isinstance(node, (ast.FunctionDef, ast.ClassDef))}
+
+
+@pytest.mark.parametrize("rel,name", [(rel, name) for rel, names in
+                                      VERBATIM_DEFS.items()
+                                      for name in names])
+def test_verbatim_definition_byte_exact(rel, name):
+    """The definition is the reference's, byte for byte, and so are its
+    decorators."""
+    port = _definitions(_SRC / "repro_torch" / rel)
+    ref = _definitions(_SRC / "repro" / rel)
+    assert port[name] == ref[name]

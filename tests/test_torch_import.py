@@ -2,7 +2,8 @@
 ``jaxlib``, ``ml_dtypes`` or anything of the reference package ``repro`` --
 not on import (the kernel ops, the conformance harness and the port's
 benches included), not after a grid run, not after a fleet run, not after
-serving a request, not after a forward of every family of the model zoo."""
+serving a request, not after a forward of every family of the model zoo,
+not after a whole ``Trainer.fit``."""
 import re
 import subprocess
 import sys
@@ -31,8 +32,14 @@ import benchmarks.run_torch
 import benchmarks.paper_figs_torch
 import benchmarks.torch_grid_bench
 import benchmarks.tail_latency_bench_torch
+import repro_torch.optim.adamw, repro_torch.optim.schedule
+import repro_torch.optim.grad_compress
+import repro_torch.train.train_step, repro_torch.train.trainer
+import repro_torch.train.checkpoint, repro_torch.train.ft
+import repro_torch.data.pipeline, repro_torch.roofline.analysis
 import importlib.util
-for example in ("kvstore_demo_torch", "serve_tiered_kv_torch"):
+for example in ("kvstore_demo_torch", "serve_tiered_kv_torch",
+                "quickstart_torch", "train_100m_torch"):
     spec = importlib.util.spec_from_file_location(
         example, f"examples/{example}.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -71,8 +78,19 @@ for arch in ("qwen2.5-3b", "deepseek-moe-16b", "llava-next-mistral-7b",
         b["frames"] = torch.zeros((1, cfg.n_frames, cfg.d_model))
     logits, _ = api.logits(p, b, cfg)
     families[cfg.family] = list(logits.shape)
+after_zoo = foreign()
+import tempfile
+from repro_torch.train.train_step import TrainHParams
+from repro_torch.train.trainer import Trainer
+with tempfile.TemporaryDirectory() as ckpt_dir:
+    tr = Trainer(smoke_config(ARCHS["qwen2.5-3b"]),
+                 TrainHParams(warmup=1, total_steps=3), ckpt_dir=ckpt_dir,
+                 ckpt_every=2, device="cpu")
+    tr.hp_global_batch, tr.hp_seq_len = 2, 16
+    _, log = tr.fit(3)
 print(json.dumps({"after_import": after_import, "after_run": after_run,
-                  "after_serve": after_serve, "after_zoo": foreign(),
+                  "after_serve": after_serve, "after_zoo": after_zoo,
+                  "after_fit": foreign(), "fit_steps": len(log),
                   "families": families,
                   "rows": len(art.rows),
                   "fleet_nodes": len(art_fleet.rows[0].nodes),
@@ -93,6 +111,7 @@ def test_import_and_run_leave_jax_and_reference_out_of_sys_modules():
     doc = json.loads(out.stdout.strip().splitlines()[-1])
     assert doc["after_import"] == [] and doc["after_run"] == []
     assert doc["after_serve"] == [] and doc["after_zoo"] == []
+    assert doc["after_fit"] == [] and doc["fit_steps"] == 3
     assert sorted(doc["families"]) == ["dense", "encdec", "hybrid", "moe",
                                        "ssm", "vlm"]
     assert doc["families"]["vlm"][1] == 6 + 8
@@ -127,7 +146,8 @@ ENTRY_POINTS = [ROOT / "benchmarks" / f"{m}.py" for m in (
     "common_torch", "run_torch", "paper_figs_torch", "torch_grid_bench",
     "tail_latency_bench_torch", "kernels_bench_torch",
     "cluster_bench_torch")] + [ROOT / "examples" / f"{m}.py" for m in (
-        "kvstore_demo_torch", "serve_tiered_kv_torch")]
+        "kvstore_demo_torch", "serve_tiered_kv_torch", "quickstart_torch",
+        "train_100m_torch")]
 
 
 @pytest.mark.parametrize("path", ENTRY_POINTS, ids=lambda p: p.name)
@@ -198,6 +218,13 @@ def test_default_device_is_cuda_and_raises_without_one():
     from repro_torch.serve.engine import ServeEngine
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServeEngine(smoke_config(ARCHS["qwen2.5-3b"]), n_pages=8)
+    from repro_torch.data.pipeline import prefetch
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.train.train_step import TrainHParams
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(smoke_config(ARCHS["qwen2.5-3b"]), TrainHParams())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        prefetch(iter([]))
 
 
 def test_cluster_scenarios_raise_not_implemented():
