@@ -31,9 +31,11 @@ kernel; ``--backend loop`` is the caller asking for the host interpreter
 exits non-zero before any work and names ``--device cpu`` (the plain
 PyTorch step on the host) and ``--backend loop``; the ``--list-*`` flags
 need no card.  ``--backend-substeps K`` sets the scheduler steps per kernel
-launch (``RunOptions.substeps``).  The reference's ``--backend-pallas``,
-``--backend-unroll`` and ``--backend-host-devices`` have no counterpart
-here and are refused.  ``--processes`` sets the worker-process count of a
+launch (``RunOptions.substeps``); ``--backend-host-devices N`` splits each
+cohort's grid cells into N shards, one per CUDA device (``RunOptions.
+host_devices``; on ``--device cpu`` one after another on the host).  The
+reference's ``--backend-pallas`` and ``--backend-unroll`` have no
+counterpart here and are refused.  ``--processes`` sets the worker-process count of a
 loop grid, ``--sweep-cache`` memoizes finished sweep cells on disk (keyed
 by backend and a code-version salt), ``--adaptive`` warm-starts the
 per-point thread search (loop backend only).  ``--artifact`` writes the
@@ -318,6 +320,12 @@ def main(argv=None) -> None:
                     help="with --backend torch: scheduler steps per kernel "
                          "launch (must divide the uniform chunk of 1024; "
                          "default: sweep_grid's)")
+    ap.add_argument("--backend-host-devices", type=int, default=None,
+                    metavar="N",
+                    help="with --backend torch: split each cohort's grid "
+                         "cells into N shards, one per CUDA device "
+                         "cuda:0..N-1 (bit-identical to one device; on "
+                         "--device cpu the shards run one after another)")
     ap.add_argument("--scenario", default=None, metavar="SPEC.json",
                     help="run one declarative scenario spec through the "
                          "experiment API instead of the paper figures")
@@ -431,7 +439,8 @@ def main(argv=None) -> None:
         print(f"sweep-cache: pruned {removed} cell(s) from "
               f"{args.sweep_cache}", file=sys.stderr)
 
-    backend_opts = {"device": args.device, "substeps": args.backend_substeps}
+    backend_opts = {"device": args.device, "substeps": args.backend_substeps,
+                    "host_devices": args.backend_host_devices}
 
     arrival = None
     if args.arrival is not None:

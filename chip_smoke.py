@@ -119,7 +119,7 @@ from repro_torch.roofline.analysis import (active_params, count_params,
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.train_step import (TrainHParams, init_train_state,
                                           make_train_step)
-from repro_torch.tree import leaf_paths
+from repro_torch.tree import get_leaf, leaf_paths
 
 from benchmarks import cluster_bench_torch as cbench
 from benchmarks import kernels_bench_torch as kbench
@@ -2339,6 +2339,7 @@ def phase_train_path(seed):
                                    .mean())
     launches = counts()
     peak = torch.cuda.max_memory_allocated()
+    final = leaf_samples(state)      # dist_path holds its run to these bits
     profile = profile_train_step(step, state, next(data))
     del state, data, batch, m, before
     torch.cuda.empty_cache()
@@ -2384,6 +2385,229 @@ def phase_train_path(seed):
     emit("train_path", **rec)
     if bad:
         fail("train_path: " + "; ".join(bad))
+    return dict(rec, final_samples=final)
+
+
+def leaf_samples(state, n=1 << 16):
+    """About ``n`` entries spread over every leaf of a train state (params,
+    both moments, count), each leaf gathered whole first (a DTensor's
+    collective), as host tensors keyed by path."""
+    from repro_torch.distributed.sharding import full
+
+    out = {}
+    for p, t in leaf_paths(state):
+        flat = full(t).detach().reshape(-1)
+        out["/".join(p)] = flat[::max(1, flat.numel() // n)][:n].cpu()
+    return out
+
+
+def _bits_equal(a, b):
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+            a.element_size()]
+        return torch.equal(a.view(view), b.view(view))
+    return torch.equal(a, b)
+
+
+LAUNCH_LINE = re.compile(
+    r"^step\s+(\d+) loss=(\S+) gnorm=(\S+) wall=(\S+)s$")
+
+
+def phase_dist_path(seed, train, sc, art):
+    """The distribution layer on the card (one card: a 1x1 NCCL mesh):
+
+    1. qwen2.5-3b at full width and depth through ``Trainer(mesh=
+       make_local_mesh())``'s step -- DTensors on the mesh, the step under
+       ``mesh_context`` -- at ``train_path``'s B x S, seed, hyper-parameters
+       and batches; every step's loss and grad norm, and samples spread over
+       every leaf after the last step, bit-equal to ``train_path``'s; step s,
+       peak memory and a 7th step under ``torch.profiler`` (the device's
+       idle share) beside ``train_path``'s: DTensor's dispatch cost on a
+       world of one;
+    2. that run's parameters checkpointed and restored by
+       ``elastic_restore`` onto a fresh 1x1 mesh, bit-equal;
+    3. ``make_crosspod_psum``: ``None`` on the 1x1 ``(data, model)`` mesh;
+       on a (1, 1, 1) ``(pod, data, model)`` mesh ``dequantize(q, s)`` bit
+       for bit;
+    4. the main path's grid with ``host_devices=1`` bit-equal to the default
+       run, with the same launches; ``host_devices`` past the visible cards
+       raises, and with two cards the split runs, bit-equal;
+    5. ``python -m repro_torch.launch.train --arch qwen2.5-3b --steps 20``
+       (smoke config, on the card) in a process of its own."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed.sharding import full
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim.grad_compress import (dequantize,
+                                                 ef_compress_grads,
+                                                 make_crosspod_psum)
+    from repro_torch.train.ft import elastic_restore
+    from repro_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    bad = []
+    cfg = ARCHS[TRAIN_ARCH]
+    hp = TrainHParams(**TRAIN_HP)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    work = Path(tempfile.mkdtemp(prefix="dist_path_"))
+    mesh = make_local_mesh()
+    tr = Trainer(cfg, hp, mesh=mesh, ckpt_dir=str(work / "fit"),
+                 ckpt_every=0, seed=seed)
+    tr.hp_global_batch, tr.hp_seq_len = TRAIN_B, TRAIN_S
+    t0 = time.perf_counter()
+    state = tr.init_state()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    data = tr.data_iter(0)
+    reset_counts()
+    step_s, losses, gnorms = [], [], []
+    for _ in range(TRAIN_STEPS):
+        batch = next(data)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = tr.train_step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    placements = sorted({str(t.placements) for _, t in leaf_paths(state)})
+    final = leaf_samples(state)
+    if any(launches.values()):
+        bad.append(f"the sharded training path launched a hand-written "
+                   f"kernel: {launches}")
+    if losses != train["loss"] or gnorms != train["grad_norm"]:
+        bad.append(f"1x1 mesh steps differ from train_path: loss {losses} "
+                   f"vs {train['loss']}, grad norm {gnorms} vs "
+                   f"{train['grad_norm']}")
+    want = train["final_samples"]
+    differ = sorted(k for k in want
+                    if k not in final or not _bits_equal(final[k], want[k]))
+    if differ or sorted(final) != sorted(want):
+        bad.append(f"leaves not bit-equal to train_path after step "
+                   f"{TRAIN_STEPS}: {differ[:8]}")
+    profile = profile_train_step(tr.train_step, state, next(data))
+    del batch, m, data, final
+    for k in ("m", "v"):
+        state["opt"][k] = None
+    torch.cuda.empty_cache()
+    warm = sorted(step_s[1:])
+    med = warm[len(warm) // 2]
+
+    # 2. elastic restore onto a fresh 1x1 mesh
+    t0 = time.perf_counter()
+    ckpt.save(str(work / "elastic"), TRAIN_STEPS, state["params"])
+    save_s = time.perf_counter() - t0
+    fresh = make_local_mesh()
+    t0 = time.perf_counter()
+    back = elastic_restore(str(work / "elastic"), TRAIN_STEPS,
+                           layers.abstract_params(tr.specs), fresh, tr.specs)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    restored_differ = [
+        "/".join(p) for p, t in leaf_paths(state["params"])
+        if not _bits_equal(full(t), full(get_leaf(back, p)))]
+    if restored_differ:
+        bad.append(f"elastic_restore not bit-equal: {restored_differ[:8]}")
+    n_leaves = len(leaf_paths(back))
+    del state, back
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # 3. the cross-pod reduction
+    none_without_pod = make_crosspod_psum(mesh) is None
+    if not none_without_pod:
+        bad.append("make_crosspod_psum on a mesh without a pod axis is not "
+                   "None")
+    pods = init_device_mesh("cuda", (1, 1, 1),
+                            mesh_dim_names=("pod", "data", "model"))
+    g = torch.randn(1 << 20, device=DEV,
+                    generator=torch.Generator(DEV).manual_seed(seed))
+    q, s, _ = ef_compress_grads({"g": g}, {"g": torch.zeros_like(g)})
+    got = make_crosspod_psum(pods)(q, s)["g"]
+    crosspod_equal = _bits_equal(got, dequantize(q["g"], s["g"]))
+    if not crosspod_equal:
+        bad.append("make_crosspod_psum on (1, 1, 1) differs from "
+                   "dequantize(q, s)")
+
+    # 4. the grid's cell axis
+    tr_ = art.trace_result.trace
+    cfg_ = sc.sim_config()
+    grid_args = (cfg_, tr_, sc.latencies_sec(), sc.thread_candidates)
+    grids, grid_launches = {}, {}
+    n_cards = torch.cuda.device_count()
+    for n in (None, 1) + ((2,) if n_cards >= 2 else ()):
+        reset_counts()
+        grids[n] = rt.sweep_grid(*grid_args, n_ops=sc.n_ops, host_devices=n)
+        torch.cuda.synchronize()
+        grid_launches[n] = counts()["fused_steps"]
+    planes = ("throughput", "time", "mem_stall_total", "mem_accesses")
+    for n in grids:
+        if any(not np.array_equal(getattr(grids[n], f),
+                                  getattr(grids[None], f)) for f in planes):
+            bad.append(f"host_devices={n} grid differs from the default")
+    if grid_launches[1] != grid_launches[None]:
+        bad.append(f"host_devices=1 launched {grid_launches[1]} times, the "
+                   f"default {grid_launches[None]}")
+    refused = None
+    try:
+        rt.sweep_grid(*grid_args, n_ops=sc.n_ops, host_devices=n_cards + 1)
+        bad.append(f"host_devices={n_cards + 1} on {n_cards} card(s) did "
+                   "not raise")
+    except ValueError as e:
+        refused = str(e)
+    dist.destroy_process_group()
+
+    # 5. the training launcher
+    with tempfile.TemporaryDirectory(prefix="launch_train_") as ck:
+        out, _, launch_s = run_module(
+            "repro_torch.launch.train", "--arch", TRAIN_ARCH, "--steps", 20,
+            "--ckpt", ck, timeout=300)
+    rows = [LAUNCH_LINE.match(line) for line in out.strip().splitlines()]
+    if not rows or not all(rows):
+        bad.append(f"launch.train printed lines that do not parse: "
+                   f"{out[-1500:]}")
+    launch_losses = [float(r.group(2)) for r in rows if r]
+    if not all(math.isfinite(x) for x in launch_losses):
+        bad.append(f"launch.train loss not finite: {launch_losses}")
+    rec = dict(
+        mesh={"shape": [1, 1], "dims": ["data", "model"], "backend": "nccl",
+              "world": 1},
+        arch=TRAIN_ARCH, batch=TRAIN_B, seq=TRAIN_S, steps=TRAIN_STEPS,
+        init_s=init_s, step_s=step_s, median_step_s_2_to_6=med,
+        train_path_median_step_s_2_to_6=train["median_step_s_2_to_6"],
+        step_s_over_train_path=med / train["median_step_s_2_to_6"],
+        peak_allocated_bytes=peak,
+        train_path_peak_allocated_bytes=train["peak_allocated_bytes"],
+        profiled_step=profile,
+        train_path_profiled_step={k: train["profiled_step"][k] for k in (
+            "wall_s", "device_kernel_s", "device_idle_share")},
+        loss=losses, grad_norm=gnorms, bit_equal_to_train_path=not any(
+            "train_path" in b for b in bad),
+        leaves_sampled=len(want), placements=placements,
+        launches=launches,
+        elastic={"leaves": n_leaves, "save_s": save_s,
+                 "restore_s": restore_s,
+                 "bit_equal": not restored_differ},
+        crosspod={"none_without_pod": none_without_pod,
+                  "bit_equal_dequantize": crosspod_equal,
+                  "numel": int(g.numel())},
+        grid={"cells": int(grids[None].throughput.size),
+              "launches": {str(k): v for k, v in grid_launches.items()},
+              "refused": refused, "cards": n_cards},
+        launch_train={"lines": len(rows), "loss": launch_losses,
+                      "wall_s": launch_s},
+        seconds=time.perf_counter() - t_phase)
+    emit("dist_path", **rec)
+    if bad:
+        fail("dist_path: " + "; ".join(bad))
     return rec
 
 
@@ -3263,8 +3487,12 @@ def main():
         for name, m in rw["wkv_model_shape"].items()}
     wkv["model_shape"]["plain"] = "models.rwkv6.wkv_chunked (float32)"
 
-    # training: qwen2.5-3b at full width, then the training example
-    phase_train_path(args.seed)
+    # training: qwen2.5-3b at full width, the same on a 1x1 mesh, then the
+    # training example
+    train = phase_train_path(args.seed)
+    torch.cuda.empty_cache()
+    phase_dist_path(args.seed, train, sc, art)
+    del train
     torch.cuda.empty_cache()
     phase_train_example()
     torch.cuda.empty_cache()

@@ -510,6 +510,7 @@ def sweep_cluster(
     device=None,
     use_kernel: bool | None = None,
     substeps: int | None = None,
+    host_devices: int | None = None,
 ) -> list[ClusterPoint]:
     """Throughput vs. memory latency for a sharded fleet.
 
@@ -525,8 +526,9 @@ def sweep_cluster(
     :func:`~repro_torch.core.sim.replay_torch.sweep_grid` per active node,
     one after another; mixture latencies fall back to the compiled loop per
     cell, like the plain sweep).  ``device`` / ``use_kernel`` /
-    ``substeps`` are passed to every node's ``sweep_grid`` unchanged
-    (``device=None`` means the CUDA device and raises without one).
+    ``substeps`` / ``host_devices`` are passed to every node's
+    ``sweep_grid`` unchanged (``device=None`` means the CUDA device and
+    raises without one).
 
     Returns one :class:`ClusterPoint` per latency: ``result`` aggregates
     the fleet (throughput summed, makespan time, fleet-merged tail
@@ -594,7 +596,8 @@ def sweep_cluster(
                     arrivals=plan.node_arrivals[k],
                     collect_percentiles=collect_percentiles,
                     deadline=plan.node_deadline, device=device,
-                    use_kernel=use_kernel, substeps=substeps)
+                    use_kernel=use_kernel, substeps=substeps,
+                    host_devices=host_devices)
                 row_of = {li: r for r, li in enumerate(scalar_lis)}
             grids[k] = (grid, row_of)
             cells[k] = [

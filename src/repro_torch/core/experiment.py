@@ -260,8 +260,9 @@ class RunOptions:
     tolerance, not bit-identically (the scientific spec is unchanged -- the
     measurement apparatus is; see ``docs/PORT.md``).  ``device=None`` means
     the CUDA device and raises without one; ``"cpu"`` asks for the host.
-    ``use_kernel``/``substeps`` choose how the grid executes (fused CUDA
-    step kernel, steps per launch) without changing any cell value."""
+    ``use_kernel``/``substeps``/``host_devices`` choose how the grid
+    executes (fused CUDA step kernel, steps per launch, cell shards over N
+    CUDA devices) without changing any cell value."""
 
     processes: int | None = None       # sweep worker processes (None: auto)
     cache_dir: str | None = None       # on-disk sweep-cell cache
@@ -272,6 +273,7 @@ class RunOptions:
     device: Any = None                 # torch: None = "cuda"; "cpu" on ask
     use_kernel: bool | None = None     # torch: fused CUDA step (None: auto)
     substeps: int | None = None        # torch: steps per kernel launch
+    host_devices: int | None = None    # torch: shard cells over N devices
 
 
 @dataclass(frozen=True)
@@ -484,7 +486,7 @@ class Experiment:
                 backend=o.backend, collect_latency=o.collect_latency,
                 collect_percentiles=o.collect_percentiles, arrival=arrival,
                 device=o.device, use_kernel=o.use_kernel,
-                substeps=o.substeps,
+                substeps=o.substeps, host_devices=o.host_devices,
             )
         else:
             pts = sweep_latency(
@@ -492,7 +494,7 @@ class Experiment:
                 n_ops=s.n_ops, processes=o.processes, cache_dir=o.cache_dir,
                 collect_latency=o.collect_latency, adaptive=o.adaptive,
                 backend=o.backend, device=o.device, use_kernel=o.use_kernel,
-                substeps=o.substeps,
+                substeps=o.substeps, host_devices=o.host_devices,
                 arrival=arrival, collect_percentiles=o.collect_percentiles,
             )
         # Eq. 14 outer IO caps for the model column, matching the scenario's

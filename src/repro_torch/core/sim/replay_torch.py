@@ -44,15 +44,21 @@ same bits.
 Everything is float64: the state mixes ~second-scale clocks with 50 ns
 context switches, which float32 cannot carry.
 
-Not carried over from the reference: ``host_devices`` (sharding the cell
-axis over virtual host devices) and ``unroll`` (scan unrolling) have no
-counterpart on this backend.
+``host_devices=N`` splits each cohort's cells into N contiguous shards,
+one per CUDA device ``cuda:0 .. N-1`` (the reference shard_maps the cell
+axis over N XLA host devices); each shard exits early on its own and the
+results merge in cell order, bit-identical to one device.  On
+``device="cpu"`` the N shards run one after another on the host.  Not
+carried over: ``unroll`` (scan unrolling), which has no counterpart here.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import numbers
 import struct
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -759,6 +765,75 @@ def _run_cohorts(cohorts: Sequence[Cohort], *, substeps: int,
     return outs
 
 
+def _shard_devices(dev: torch.device, n_dev: int) -> list[torch.device]:
+    """The devices of ``n_dev`` cell shards: ``cuda:0 .. n_dev-1``, or the
+    host ``n_dev`` times."""
+    if n_dev < 1:
+        raise ValueError(f"host_devices must be >= 1, got {n_dev}")
+    if dev.type != "cuda":
+        return [dev] * n_dev
+    avail = torch.cuda.device_count()
+    if n_dev > avail:
+        raise ValueError(
+            f"host_devices={n_dev} but torch sees {avail} CUDA device(s); "
+            "one shard of the cell axis runs on each device")
+    return [torch.device("cuda", k) for k in range(n_dev)]
+
+
+def _shard_cohort(c: Cohort, lo: int, hi: int, dev: torch.device,
+                  draws) -> Cohort:
+    """Cells ``[lo, hi)`` of cohort ``c`` on ``dev``: every per-cell tensor
+    sliced along its leading cell axis, the shared ones copied."""
+    to = lambda t: t.to(dev)
+    return dataclasses.replace(
+        c, G=hi - lo, stream_ids=c.stream_ids[lo:hi],
+        state=tuple(to(t[lo:hi]).contiguous() for t in c.state),
+        kd=to(c.kd), se=to(c.se), arr=to(c.arr),
+        L_mem_g=to(c.L_mem_g[lo:hi]), nthr_g=to(c.nthr_g[lo:hi]),
+        warm_g=to(c.warm_g[lo:hi]), draws=draws)
+
+
+def _run_sharded(cohorts: Sequence[Cohort], devices: list, draws_for,
+                 **run) -> list[dict]:
+    """:func:`_run_cohorts` over each cohort's cells split into
+    ``len(devices)`` contiguous shards, shard ``k`` on ``devices[k]``, each
+    exiting early on its own; the planes merge back in cell order and
+    ``steps_run`` becomes per cell.  The shards of distinct CUDA devices run
+    side by side (a host thread each), the host's one after another."""
+    n = len(devices)
+    bounds = [np.linspace(0, c.G, n + 1).round().astype(int) for c in cohorts]
+    jobs = []
+    for k, dev in enumerate(devices):
+        draws = draws_for(dev)
+        part = [(i, _shard_cohort(c, int(b[k]), int(b[k + 1]), dev, draws))
+                for i, (c, b) in enumerate(zip(cohorts, bounds))
+                if b[k + 1] > b[k]]
+        jobs.append(part)
+
+    def one(part):
+        if not part:
+            return []
+        dev = part[0][1].L_mem_g.device
+        with (torch.cuda.device(dev) if dev.type == "cuda"
+              else contextlib.nullcontext()):
+            outs = _run_cohorts([c for _, c in part], **run)
+        for (_, c), out in zip(part, outs):
+            out["steps_run"] = np.full(c.G, out["steps_run"])
+        return [(i, out) for (i, _), out in zip(part, outs)]
+
+    if devices[0].type == "cuda" and n > 1:
+        with ThreadPoolExecutor(n) as pool:
+            done = list(pool.map(one, jobs))
+    else:
+        done = [one(part) for part in jobs]
+    pieces: list[list[dict]] = [[] for _ in cohorts]
+    for results in done:                 # device order = cell order
+        for i, out in results:
+            pieces[i].append(out)
+    return [{key: np.concatenate([p[key] for p in ps]) for key in ps[0]}
+            for ps in pieces]
+
+
 def sweep_grid(
     cfg: SimConfig,
     trace: CompiledTrace | TraceArrays,
@@ -772,6 +847,7 @@ def sweep_grid(
     substeps: int | None = None,
     bucket_threads: bool = True,
     early_exit: bool = True,
+    host_devices: int | None = None,
     arrivals: Sequence[float] | None = None,
     collect_percentiles: bool = False,
     deadline: float = 0.0,
@@ -799,6 +875,13 @@ def sweep_grid(
     ``early_exit=False`` runs every cohort to its full bound (all four
     combinations are bit-identical).
 
+    ``host_devices=N > 1`` splits each cohort's cells into N contiguous
+    shards, one per CUDA device ``cuda:0 .. N-1`` (``ValueError`` when
+    fewer are visible); on ``device="cpu"`` the shards run one after
+    another on the host.  Each shard exits early on its own; the result
+    planes are bit-identical to one device, ``cell_steps_run`` counts each
+    shard's own steps.
+
     ``arrivals`` (a monotone timestamp sequence, seconds) switches every
     cell to the open-loop arrival mode: the SAME array drives all cells, so it
     must cover the worst cell's demand ``n_cores * n_threads + warmup +
@@ -822,6 +905,8 @@ def sweep_grid(
         raise ValueError(
             f"substeps must divide the RNG chunk ({_RNG_CHUNK}): "
             f"{substeps}")
+    devices = _shard_devices(dev, 1 if host_devices is None
+                             else int(host_devices))
     latencies = list(latencies)
     thread_candidates = list(thread_candidates)
     cohorts = plan_grid(
@@ -848,8 +933,15 @@ def sweep_grid(
     max_steps = 0
     steps_bound_cells = 0
     steps_run_cells = 0
-    outs = _run_cohorts(cohorts, substeps=substeps, use_kernel=use_kernel,
-                        early_exit=early_exit)
+    run = dict(substeps=substeps, use_kernel=use_kernel,
+               early_exit=early_exit)
+    if len(devices) > 1:
+        outs = _run_sharded(
+            cohorts, devices,
+            (lambda d: SplitMixDraws(cfg.seed, d)) if draws is None
+            else (lambda d: draws), **run)
+    else:
+        outs = _run_cohorts(cohorts, **run)
     for c, out in zip(cohorts, outs):
         cols, steps, G, nc = c.cols, c.steps, c.G, len(c.cols)
         max_steps = max(max_steps, steps)
@@ -860,7 +952,8 @@ def sweep_grid(
                 f"worst cell counted {short}/{n_ops} ops) -- this is "
                 "a bug in _steps_bound")
         steps_bound_cells += steps * G
-        steps_run_cells += out["steps_run"] * G
+        steps_run_cells += int(np.sum(
+            np.broadcast_to(out["steps_run"], (G,))))
         bshape = (n_lat, nc)
         thr[:, cols] = out["throughput"].reshape(bshape)
         tim[:, cols] = out["time"].reshape(bshape)

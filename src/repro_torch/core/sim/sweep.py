@@ -424,6 +424,7 @@ def sweep_latency(
     substeps: int | None = None,
     arrival: ArrivalSpec | dict | None = None,
     collect_percentiles: bool = False,
+    host_devices: int | None = None,
 ) -> list[SweepPoint]:
     """Throughput vs. memory latency with per-point thread optimization.
 
@@ -491,13 +492,15 @@ def sweep_latency(
         interpreter: every cell runs through the interpreter loops
         (compiled fast path, generic fallback) as above.  Cached cells are
         keyed per backend, so the two never answer for each other.
-    device, use_kernel, substeps
+    device, use_kernel, substeps, host_devices
         Torch-backend execution choices, forwarded to
         :func:`~repro_torch.core.sim.replay_torch.sweep_grid`: ``device``
         (``None`` means the CUDA device and raises without one; ``"cpu"``
         runs the plain PyTorch step on the host), ``use_kernel`` (``None``:
         the fused CUDA kernel on CUDA tensors, the plain step on CPU
-        tensors), ``substeps`` (steps per kernel launch).  Strategy knobs
+        tensors), ``substeps`` (steps per kernel launch), ``host_devices``
+        (each cohort's cells in N contiguous shards, one per CUDA device;
+        one after another on the host).  Strategy knobs
         only -- cell values (and hence cache keys) do not depend on them;
         ignored by ``backend="loop"``.
     arrival
@@ -601,6 +604,8 @@ def sweep_latency(
         grid_opts = {"device": device, "use_kernel": use_kernel}
         if substeps is not None:
             grid_opts["substeps"] = substeps
+        if host_devices is not None:
+            grid_opts["host_devices"] = host_devices
         _run_torch_cells(cfg, trace, latencies, candidates, n_ops,
                          warmup_ops, results, todo, grid_opts,
                          arrivals_arr, collect_percentiles, deadline)

@@ -19,7 +19,7 @@ from ..core.sim.replay_torch import resolve_device
 from . import mamba2
 from . import transformer as tf
 from .layers import (DTYPE, ParamSpec, embed, layer_views, map_tree,
-                     remat_call, rms_norm, take_layer)
+                     remat_call, rms_norm, shard, take_layer)
 
 __all__ = ["param_specs", "forward", "decode_step", "init_cache", "plan_layers"]
 
@@ -80,6 +80,7 @@ def forward(params, tokens, cfg, prefix_embeds=None, remat: bool = True,
     Mamba layer and each shared-attention site in the backward."""
     x = embed(params, tokens)
     B, S = x.shape[0], x.shape[1]
+    x = shard(x, "batch", "seq_res", "embed")
     positions = torch.arange(S, device=x.device).expand(B, S)
     mamba_body = lambda x, lw: mamba2.block_forward(x, lw, cfg)[0]
     attn_body = lambda x: tf._layer_body(x, params["shared_attn"], cfg,
@@ -93,7 +94,7 @@ def forward(params, tokens, cfg, prefix_embeds=None, remat: bool = True,
             x = remat_call(attn_body, x, remat=remat)
     if last_only:
         x = x[:, -1:]
-    return _head(params, x)
+    return shard(_head(params, x), "batch", "seq", "vocab")
 
 
 def init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
@@ -138,4 +139,4 @@ def decode_step(params, cache, tokens, cfg):
         "v": v_all,
         "pos": pos + 1,
     }
-    return _head(params, x), new_cache
+    return shard(_head(params, x), "batch", "seq", "vocab"), new_cache

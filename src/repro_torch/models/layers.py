@@ -21,13 +21,18 @@ Blockwise attention has the reference's custom backward (``_FlashFn``, the
 counterpart of its custom-VJP ``_flash``): only ``out`` and the
 float32 log-sum-exp are kept for it, and each KV block is recomputed.
 
-Not ported yet: the sharding helpers (``shard``, ``mesh_context``,
-``param_shardings``, ``logical_to_pspec``; ROADMAP A16).  ``attention``
-takes no ``unroll``: it only shaped the reference's scanned loop.
+Every tensor dimension carries a *logical axis name*; the distribution
+layer (:mod:`repro_torch.distributed.sharding`) maps logical names to mesh
+axes.  ``shard(x, *names)`` redistributes a DTensor to the rule's placements
+when a mesh context is active (the reference's ``with_sharding_constraint``)
+and is the identity otherwise, so the same model code runs on one device and
+on a mesh.  ``attention`` takes no ``unroll``: it only shaped the
+reference's scanned loop.
 """
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Any
 
@@ -38,6 +43,12 @@ from torch.utils.checkpoint import checkpoint
 __all__ = [
     "ParamSpec",
     "init_params",
+    "abstract_params",
+    "param_shardings",
+    "mesh_context",
+    "logical_to_pspec",
+    "shard",
+    "local_call",
     "map_tree",
     "take_layer",
     "layer_views",
@@ -98,6 +109,109 @@ def init_params(specs, generator: torch.Generator) -> dict:
     return {k: init_params(specs[k], generator) for k in sorted(specs)}
 
 
+def abstract_params(specs) -> dict:
+    """``meta`` tensor tree for a ParamSpec tree: shapes and dtypes only,
+    nothing allocated."""
+    return map_tree(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                          device="meta"), specs)
+
+
+# ---------------------------------------------------------------------------
+# Mesh context: logical-axis -> spec resolution
+# ---------------------------------------------------------------------------
+
+_MESH_CTX: list[tuple[Any, dict[str, Any]]] = []
+
+
+@contextmanager
+def mesh_context(mesh, rules: dict[str, Any]):
+    """Activate logical->mesh axis rules for ``shard`` / ``param_shardings``.
+
+    ``rules`` maps a logical axis name to a mesh axis name, a tuple of mesh
+    axis names, or None (replicated).  A plain tensor meeting a DTensor
+    counts as replicated (positions, masks), as every array the reference
+    does not constrain is under GSPMD.
+    """
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    _MESH_CTX.append((mesh, rules))
+    try:
+        with implicit_replication():
+            yield
+    finally:
+        _MESH_CTX.pop()
+
+
+def logical_to_pspec(axes: tuple[str | None, ...], rules: dict[str, Any]) -> tuple:
+    """The spec (a PartitionSpec's tuple of entries) of logical ``axes``."""
+    return tuple(rules.get(a) if a is not None else None for a in axes)
+
+
+def shard(x: torch.Tensor, *axes: str | None) -> torch.Tensor:
+    """Constrain ``x``'s placement by logical axis names: a DTensor is
+    redistributed to the rule's placements on the context's mesh.  The
+    identity without a context or on a plain tensor."""
+    if not _MESH_CTX:
+        return x
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    from ..distributed.sharding import placements
+
+    mesh, rules = _MESH_CTX[-1]
+    want = placements(logical_to_pspec(axes, rules), mesh)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(mesh, want)
+
+
+def local_call(fn, in_axes: tuple, out_axes: tuple, *args):
+    """``fn(*args)`` run on each rank's own shards, for a computation DTensor
+    cannot place (an op without a sharding rule) but the reference's layout
+    makes shard-local.  On a mesh each tensor argument is redistributed to
+    the logical axes of its entry of ``in_axes`` (``None`` for anything
+    else), ``fn`` sees plain local tensors, and its outputs are DTensors
+    placed by ``out_axes`` (one axes tuple per output).  An argument whole
+    along a mesh dim that another argument shards gets a partial-sum
+    gradient there (each rank saw a part of the other's slices: a weight's
+    gradient over the data axes).  The plain call without a context or
+    DTensor arguments."""
+    lead = next((a for a in args if hasattr(a, "placements")), None)
+    if not _MESH_CTX or lead is None:
+        return fn(*args)
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..distributed.sharding import placements
+
+    mesh, rules = _MESH_CTX[-1]
+    pl = lambda axes: placements(logical_to_pspec(axes, rules), mesh)
+    whole = lambda a: (a if hasattr(a, "placements") else DTensor.from_local(
+        a, mesh, [Replicate()] * mesh.ndim, run_check=False))
+    args = tuple(a if ax is None else shard(whole(a), *ax)
+                 for a, ax in zip(args, in_axes))
+    ins = tuple(None if ax is None else pl(ax) for ax in in_axes)
+    split = {m for p in ins if p is not None
+             for m, q in enumerate(p) if q.is_shard()}
+    grads = tuple(None if p is None else tuple(
+        Partial() if q == Replicate() and m in split else q
+        for m, q in enumerate(p)) for p in ins)
+    return local_map(
+        fn, out_placements=tuple(pl(ax) for ax in out_axes),
+        in_placements=ins, in_grad_placements=grads,
+        device_mesh=mesh)(*args)
+
+
+def param_shardings(specs, mesh, rules: dict[str, Any]):
+    """:class:`repro_torch.distributed.sharding.NamedSharding` tree for a
+    ParamSpec tree under the given rules."""
+    from ..distributed.sharding import NamedSharding
+
+    return map_tree(lambda s: NamedSharding(mesh, logical_to_pspec(s.axes, rules)),
+                    specs)
+
+
 def map_tree(fn, tree):
     """``fn`` applied to every leaf of a nested dict (parameter and spec
     trees)."""
@@ -134,8 +248,17 @@ def remat_call(fn, *args, remat: bool = True):
 
 
 def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    """Rows of ``params["embed"]`` (in :data:`DTYPE`) for integer tokens."""
-    return params["embed"].to(DTYPE)[tokens.long()]
+    """Rows of ``params["embed"]`` (in :data:`DTYPE`) for integer tokens.
+    On a mesh each rank looks up its own batch rows in the whole table (the
+    table gathered, as the FSDP axes gather every weight; DTensor's
+    index backward is not dependable across PyTorch versions)."""
+    out = ("batch",) + (None,) * tokens.dim()
+    return local_call(_lookup, ((None, None), out[:-1]), (out,),
+                      params["embed"], tokens)
+
+
+def _lookup(table, tokens):
+    return table.to(DTYPE)[tokens.long()]
 
 
 # ---------------------------------------------------------------------------
@@ -203,7 +326,29 @@ def attention(
         qg = q.reshape(B, S, Hkv, rep, D).float() * scale
         return _attn_dense(qg, k, v, causal, sliding_window).to(q.dtype)
     win = 0 if sliding_window is None else int(sliding_window)
-    return _FlashFn.apply(q, k, v, bool(causal), win, int(block_kv))
+    # on a mesh: each rank's (batch, head) block alone, the KV heads split
+    # as the query heads when the model axes divide them
+    heads = "heads" if Hkv % _rule_extent("heads") == 0 else None
+    ax = ("batch", None, heads, None)
+    return local_call(_FlashFn.apply, (ax, ax, ax, None, None, None), (ax,),
+                      q, k, v, bool(causal), win, int(block_kv))
+
+
+def _rule_extent(name: str) -> int:
+    """How many shards the active mesh context's rule for logical axis
+    ``name`` makes (1 without a context)."""
+    if not _MESH_CTX:
+        return 1
+    from ..distributed.sharding import axis_size
+
+    mesh, rules = _MESH_CTX[-1]
+    entry = rules.get(name)
+    axes = () if entry is None else (
+        (entry,) if isinstance(entry, str) else tuple(entry))
+    n = 1
+    for a in axes:
+        n *= axis_size(mesh, a)
+    return n
 
 
 def _flash_mask(q_pos, kv_pos, causal: bool, win: int, S: int):
@@ -386,4 +531,5 @@ def mlp(x: torch.Tensor, w: dict, kind: str = "swiglu") -> torch.Tensor:
     else:
         h = x @ w["wi"]
         h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    h = shard(h, "batch", "seq", "mlp")
     return h @ w["wo"]

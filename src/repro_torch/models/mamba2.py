@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.sim.replay_torch import resolve_device
-from .layers import DTYPE, ParamSpec, rms_norm
+from .layers import DTYPE, ParamSpec, rms_norm, shard
 
 __all__ = [
     "block_specs",
@@ -138,7 +138,7 @@ def _gate_out(y, z, x, lw, d_inner):
     """D skip already added: gate by silu(z), out_norm, out_proj, residual."""
     y = y.reshape(*x.shape[:2], d_inner)
     y = rms_norm((y * F.silu(z.float())).to(DTYPE), lw["out_norm"])
-    return x + y @ lw["out_proj"]
+    return x + shard(y @ lw["out_proj"], "batch", "seq_res", "embed")
 
 
 def block_forward(x, lw, cfg, state0=None, conv_cache=None):

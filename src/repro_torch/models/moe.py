@@ -17,8 +17,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .layers import (DTYPE, ParamSpec, embed, layer_views, mlp, remat_call,
-                     take_layer)
+from .layers import (DTYPE, ParamSpec, embed, layer_views, local_call, mlp,
+                     remat_call, shard, take_layer)
 from . import transformer as tf
 
 __all__ = ["param_specs", "forward", "decode_step", "init_cache", "moe_mlp",
@@ -114,6 +114,45 @@ def dispatch_slots(flat_e, E: int, C: int):
     return rank, keep, dest
 
 
+def _group_local(fn, n_out: int, *args):
+    """``fn(*args)`` for a function of each group (leading row) alone: on a
+    mesh each rank runs it on its own groups, placed as the reference's
+    ``expert_group`` (the reference's routing, dispatch and combine are
+    shard-local; DTensor has no sharding rule for ``searchsorted`` or an
+    accumulating ``index_put_``)."""
+    grp = lambda a: ("expert_group",) + (None,) * (a.dim() - 1)
+    first = next(a for a in args if isinstance(a, torch.Tensor))
+    return local_call(fn, tuple(grp(a) if isinstance(a, torch.Tensor)
+                                else None for a in args),
+                      (grp(first),) * n_out, *args)
+
+
+def _experts(buf, wi_gate, wi_up, wo):
+    """The routed experts' SwiGLU over their dispatch buffer (G, E, C, d)."""
+    gt = torch.einsum("gecd,edf->gecf", buf, wi_gate)
+    up = torch.einsum("gecd,edf->gecf", buf, wi_up)
+    h = F.silu(gt.float()).to(DTYPE) * up
+    h = shard(h, "expert_group", "expert", None, "expert_mlp")
+    return torch.einsum("gecf,efd->gecd", h, wo)
+
+
+def _to_buffer(vals, dest, n_slots: int):
+    """Each group's (n, d) ``vals`` added into rows ``dest`` of a zeroed
+    (n_slots, d) buffer: (G, n, d) -> (G, n_slots, d)."""
+    G, n, d = vals.shape
+    g_idx = torch.arange(G, device=vals.device)[:, None].expand(G, n)
+    buf = torch.zeros((G, n_slots, d), dtype=vals.dtype, device=vals.device)
+    buf.index_put_((g_idx, dest), vals, accumulate=True)
+    return buf
+
+
+def _from_buffer(y, dest):
+    """Rows ``dest`` of each group's buffer: (G, n_slots, d) -> (G, n, d)."""
+    G, n = dest.shape
+    g_idx = torch.arange(G, device=y.device)[:, None].expand(G, n)
+    return y[g_idx, dest]
+
+
 def moe_mlp(x: torch.Tensor, lw: dict, cfg) -> tuple[torch.Tensor, torch.Tensor]:
     """Routed + shared expert FFN. x: (B, S, d) -> (out, aux_loss).
 
@@ -126,30 +165,34 @@ def moe_mlp(x: torch.Tensor, lw: dict, cfg) -> tuple[torch.Tensor, torch.Tensor]
     G = n_groups(T, cfg)
     Tg = T // G
     C = capacity(Tg, cfg)
-    xt = x.reshape(G, Tg, d)
+    xt = shard(x.reshape(G, Tg, d), "expert_group", None, "embed")
     _, gate_vals, expert_idx, aux = route(xt, lw["router"], cfg)
     flat_e = expert_idx.reshape(G, Tg * k)
-    _, keep, dest = dispatch_slots(flat_e, E, C)
+    _, keep, dest = _group_local(dispatch_slots, 3, flat_e, E, C)
     tok = torch.arange(Tg * k, device=x.device) // k
     vals = torch.where(keep[..., None], xt[:, tok], 0).to(DTYPE)
-    g_idx = torch.arange(G, device=x.device)[:, None].expand(G, Tg * k)
-    buf = torch.zeros((G, E * C, d), dtype=DTYPE, device=x.device)
-    buf.index_put_((g_idx, dest), vals, accumulate=True)
-    buf = buf.reshape(G, E, C, d)
+    buf = _group_local(_to_buffer, 1, vals, dest, E * C)
+    # group-major -> expert-major: the EP all-to-all happens here
+    buf = shard(buf.reshape(G, E, C, d), "expert_group", "expert", None,
+                "embed")
 
     ex = lw["experts"]
-    gt = torch.einsum("gecd,edf->gecf", buf, ex["wi_gate"])
-    up = torch.einsum("gecd,edf->gecf", buf, ex["wi_up"])
-    h = F.silu(gt.float()).to(DTYPE) * up
-    y = torch.einsum("gecf,efd->gecd", h, ex["wo"]).reshape(G, E * C, d)
+    # on a mesh each rank runs its (group, expert) block with the experts'
+    # weights gathered over the FSDP axes
+    blk, w = ("expert_group", "expert", None, "embed"), ("expert", None, None)
+    y = local_call(_experts, (blk, w, w, w), (blk,), buf, ex["wi_gate"],
+                   ex["wi_up"], ex["wo"])
+    y = y.reshape(G, E * C, d)
 
-    out_tok = y[g_idx, dest] * (
+    out_tok = _group_local(_from_buffer, 1, y, dest) * (
         keep[..., None] * gate_vals.reshape(G, Tg * k, 1)).to(DTYPE)
     # the reference's bfloat16 sum accumulates in float32 and rounds once
     routed = out_tok.reshape(G, Tg, k, d).float().sum(2).to(DTYPE)
     out = routed.reshape(T, d)
     if cfg.n_shared:
-        out = out + mlp(x.reshape(1, T, d), lw["shared"], "swiglu")[0]
+        # per token: the (B, S) rows are the reference's (1, T) rows, and
+        # keep the batch axis a mesh shards
+        out = out + mlp(x, lw["shared"], "swiglu").reshape(T, d)
     return out.reshape(B, S, d).to(x.dtype), aux
 
 
@@ -157,7 +200,7 @@ def _layer_body(x, lw, cfg, positions):
     x, _, _ = tf._attn_block(x, lw, cfg, positions)
     h = tf._norm(x, None, cfg, "mlp_norm", "mlp_norm_b", lw)
     y, aux = moe_mlp(h, lw, cfg)
-    return x + y, aux
+    return shard(x + y, "batch", "seq_res", "embed"), aux
 
 
 def forward(params, tokens, cfg, prefix_embeds=None, remat: bool = True,
@@ -168,6 +211,7 @@ def forward(params, tokens, cfg, prefix_embeds=None, remat: bool = True,
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(DTYPE), x], dim=1)
     B, S, _ = x.shape
+    x = shard(x, "batch", "seq_res", "embed")
     positions = torch.arange(S, device=x.device).expand(B, S)
     auxes = []
     for lw in layer_views(params["layers"], cfg.n_layers):
@@ -175,7 +219,8 @@ def forward(params, tokens, cfg, prefix_embeds=None, remat: bool = True,
         auxes.append(aux)
     if last_only:
         x = x[:, -1:]
-    return tf._head(params, x, cfg), torch.stack(auxes).mean()
+    return (shard(tf._head(params, x, cfg), "batch", "seq", "vocab"),
+            torch.stack(auxes).mean())
 
 
 init_cache = tf.init_cache
@@ -184,7 +229,7 @@ init_cache = tf.init_cache
 def decode_step(params, cache, tokens, cfg):
     """One token through the MoE stack over a full or ring KV cache; the
     caller's cache is left as it was."""
-    x = embed(params, tokens)
+    x = shard(embed(params, tokens), "batch", "seq_res", "embed")
     pos = cache["pos"]
     k_all = cache["k"].clone()
     v_all = cache["v"].clone()
@@ -194,4 +239,5 @@ def decode_step(params, cache, tokens, cfg):
         h = tf._norm(x, None, cfg, "mlp_norm", "mlp_norm_b", lw)
         y, _ = moe_mlp(h, lw, cfg)
         x = x + y
-    return tf._head(params, x, cfg), {"k": k_all, "v": v_all, "pos": pos + 1}
+    return (shard(tf._head(params, x, cfg), "batch", "seq", "vocab"),
+            {"k": k_all, "v": v_all, "pos": pos + 1})

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 
 from ..core.sim.replay_torch import resolve_device
 from .layers import (DTYPE, ParamSpec, embed, layer_norm, layer_views,
-                     remat_call, take_layer)
+                     remat_call, shard, take_layer)
 
 __all__ = ["param_specs", "forward", "decode_step", "init_state",
            "wkv_chunked"]
@@ -180,6 +180,7 @@ def _channel_mix(x, x_prev, lw):
     xk = x + sx * lw["cm_maa_k"]
     xr = x + sx * lw["cm_maa_r"]
     kk = torch.square(F.relu((xk @ lw["cm_wk"]).float())).to(DTYPE)
+    kk = shard(kk, "batch", "seq", "mlp")
     vv = kk @ lw["cm_wv"]
     rr = torch.sigmoid((xr @ lw["cm_wr"]).float())
     return rr.to(DTYPE) * vv
@@ -210,7 +211,7 @@ def _layer(x, lw, cfg, st=None, decode=False):
         "tm_last": h[:, -1],
         "cm_last": h2[:, -1],
     }
-    return x, new_st
+    return shard(x, "batch", "seq_res", "embed"), new_st
 
 
 def _head(params, x):
@@ -225,12 +226,13 @@ def forward(params, tokens, cfg, prefix_embeds=None, remat: bool = True,
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(DTYPE), x], dim=1)
     x = layer_norm(x, params["ln_in"], params["ln_in_b"])
+    x = shard(x, "batch", "seq_res", "embed")
     body = lambda x, lw: _layer(x, lw, cfg)[0]
     for lw in layer_views(params["layers"], cfg.n_layers):
         x = remat_call(body, x, lw, remat=remat)
     if last_only:
         x = x[:, -1:]
-    return _head(params, x)
+    return shard(_head(params, x), "batch", "seq", "vocab")
 
 
 def init_state(cfg, batch: int, device=None) -> dict:
@@ -258,7 +260,7 @@ def decode_step(params, state, tokens, cfg):
                        decode=True)
         for key in new:
             new[key].append(st[key])
-    logits = _head(params, x)
+    logits = shard(_head(params, x), "batch", "seq", "vocab")
     new_state = {key: torch.stack(vals) for key, vals in new.items()}
     new_state["pos"] = state["pos"] + 1
     return logits, new_state

@@ -35,6 +35,7 @@ from .layers import (
     remat_call,
     rms_norm,
     rope,
+    shard,
     take_layer,
 )
 
@@ -118,6 +119,7 @@ def _qkv(x, lw, cfg, positions):
     q = q.reshape(B, S, cfg.n_heads, dh)
     k = k.reshape(B, S, cfg.n_kv_heads, dh)
     v = v.reshape(B, S, cfg.n_kv_heads, dh)
+    q = shard(q, "batch", "seq", "heads", None)
     if cfg.use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
@@ -149,7 +151,7 @@ def _attn_block(x, lw, cfg, positions):
 
 def _layer_body(x, lw, cfg, positions):
     x, _, _ = _attn_block(x, lw, cfg, positions)
-    return _ffn(x, lw, cfg)
+    return shard(_ffn(x, lw, cfg), "batch", "seq_res", "embed")
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg,
@@ -165,6 +167,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg,
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(DTYPE), x], dim=1)
     B, S, _ = x.shape
+    x = shard(x, "batch", "seq_res", "embed")
     positions = torch.arange(S, device=x.device).expand(B, S)
 
     lws = layer_views(params["layers"], cfg.n_layers)
@@ -186,7 +189,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg,
         x = layers(x, 0, cfg.n_layers)
     if last_only:
         x = x[:, -1:]
-    return _head(params, x, cfg)
+    return shard(_head(params, x, cfg), "batch", "seq", "vocab")
 
 
 # ---------------------------------------------------------------------------
@@ -247,7 +250,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, cfg):
     it was.  As in the reference, the batch shares one position,
     ``cache["pos"][0]``.
     """
-    x = embed(params, tokens)
+    x = shard(embed(params, tokens), "batch", "seq_res", "embed")
     pos = cache["pos"]
     k_all = cache["k"].clone()
     v_all = cache["v"].clone()
@@ -255,7 +258,8 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, cfg):
         x, _, _ = _decode_layer(x, layer_params(params, li), k_all[li],
                                 v_all[li], pos, cfg)
     logits = _head(params, x, cfg)
-    return logits, {"k": k_all, "v": v_all, "pos": pos + 1}
+    return (shard(logits, "batch", "seq", "vocab"),
+            {"k": k_all, "v": v_all, "pos": pos + 1})
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg, max_len: int | None = None):
@@ -267,13 +271,13 @@ def prefill(params: dict, tokens: torch.Tensor, cfg, max_len: int | None = None)
     B, S = tokens.shape
     max_len = max_len or S
     W = cache_window(cfg, max_len)
-    x = embed(params, tokens)
+    x = shard(embed(params, tokens), "batch", "seq_res", "embed")
     positions = torch.arange(S, device=x.device).expand(B, S)
     ks, vs = [], []
     for li in range(cfg.n_layers):
         lw = layer_params(params, li)
         x, k, v = _attn_block(x, lw, cfg, positions)
-        x = _ffn(x, lw, cfg)
+        x = shard(_ffn(x, lw, cfg), "batch", "seq_res", "embed")
         # keep the last W positions in the (ring) cache, slot = pos % W
         k_keep = k[:, -W:]
         v_keep = v[:, -W:]

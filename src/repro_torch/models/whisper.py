@@ -28,6 +28,7 @@ from .layers import (
     layer_norm,
     layer_views,
     remat_call,
+    shard,
     take_layer,
 )
 
@@ -127,6 +128,7 @@ def _cross_attn(q, k, v):
 def _ffn(x, lw):
     h = x @ lw["mlp"]["wi"] + lw["mlp"]["bi"]
     h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    h = shard(h, "batch", "seq", "mlp")
     return h @ lw["mlp"]["wo"] + lw["mlp"]["bo"]
 
 
@@ -134,12 +136,13 @@ def encode(params, frames, cfg, remat: bool = True):
     """frames: (B, T, d_model) precomputed frame embeddings (conv stub)."""
     x = frames.to(DTYPE) + _sinusoid(frames.shape[1], cfg.d_model,
                                      frames.device)[None]
+    x = shard(x, "batch", "seq_res", "embed")
 
     def body(x, lw):
         h = layer_norm(x, lw["ln1"], lw["ln1_b"])
         x = x + _mha(h, h, lw, cfg, causal=False)
         h = layer_norm(x, lw["ln2"], lw["ln2_b"])
-        return x + _ffn(h, lw)
+        return shard(x + _ffn(h, lw), "batch", "seq_res", "embed")
 
     for lw in layer_views(params["enc"], cfg.n_layers):
         x = remat_call(body, x, lw, remat=remat)
@@ -158,6 +161,7 @@ def forward(params, tokens, cfg, frames=None, remat: bool = True,
     enc_out = encode(params, frames, cfg, remat)
     B, S = tokens.shape
     x = embed(params, tokens) + params["pos_dec"][:S][None]
+    x = shard(x, "batch", "seq_res", "embed")
 
     def body(x, lw):
         h = layer_norm(x, lw["ln1"], lw["ln1_b"])
@@ -165,13 +169,13 @@ def forward(params, tokens, cfg, frames=None, remat: bool = True,
         h = layer_norm(x, lw["lnx"], lw["lnx_b"])
         x = x + _mha(h, enc_out, lw, cfg, prefix="x_")
         h = layer_norm(x, lw["ln2"], lw["ln2_b"])
-        return x + _ffn(h, lw)
+        return shard(x + _ffn(h, lw), "batch", "seq_res", "embed")
 
     for lw in layer_views(params["dec"], cfg.n_layers):
         x = remat_call(body, x, lw, remat=remat)
     if last_only:
         x = x[:, -1:]
-    return _head(params, x)
+    return shard(_head(params, x), "batch", "seq", "vocab")
 
 
 def init_cache(cfg, batch: int, max_len: int, n_frames: int,
@@ -234,4 +238,4 @@ def decode_step(params, cache, tokens, cfg):
         h = layer_norm(x, lw["ln2"], lw["ln2_b"])
         x = x + _ffn(h, lw)
     new_cache = dict(cache, k=k_all, v=v_all, pos=pos + 1)
-    return _head(params, x), new_cache
+    return shard(_head(params, x), "batch", "seq", "vocab"), new_cache

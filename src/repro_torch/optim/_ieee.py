@@ -14,5 +14,5 @@ import torch
 
 def sqrt(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu" and x.dtype == torch.float32:
-        return x.double().sqrt_().float()
+        return torch.sqrt(x.double()).float()
     return torch.sqrt(x)

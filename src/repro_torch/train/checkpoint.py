@@ -15,6 +15,12 @@ Restore needs no ``ml_dtypes``: the stored ``uint16`` patterns are
 reinterpreted as ``torch.bfloat16``, as :mod:`repro_torch.models.convert`
 carries reference parameters.  ``like`` is a tree of tensors (``meta``
 tensors will do), in place of the reference's abstract shape tree.
+
+Checkpoints are mesh-agnostic, as the reference's: a state of DTensors is
+gathered whole on every rank (a collective) and written by rank 0, and
+``restore(..., shardings=)`` places each leaf on the mesh of its
+:class:`~repro_torch.distributed.sharding.NamedSharding` -- so a
+checkpoint written on one mesh restores onto another, or onto one device.
 """
 from __future__ import annotations
 
@@ -28,8 +34,9 @@ import numpy as np
 import torch
 
 from ..core.sim.replay_torch import resolve_device
+from ..distributed.sharding import full, mesh_device
 from ..models.layers import map_tree
-from ..tree import leaf_paths, set_leaf
+from ..tree import get_leaf, leaf_paths, leaves, set_leaf
 
 __all__ = ["save", "restore", "latest_step", "CheckpointManager"]
 
@@ -43,7 +50,7 @@ def _key(path: tuple) -> str:
 def _to_savable(t: torch.Tensor) -> tuple[np.ndarray, str]:
     """A leaf as a host array npz can hold, plus the dtype name for a
     bfloat16 leaf stored as its ``uint16`` view."""
-    t = t.detach().to("cpu", copy=True)   # the write may run later
+    t = full(t.detach()).to("cpu", copy=True)   # the write may run later
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
     return t.numpy(), ""
@@ -51,12 +58,18 @@ def _to_savable(t: torch.Tensor) -> tuple[np.ndarray, str]:
 
 def save(ckpt_dir: str, step: int, state, blocking: bool = True,
          extra: dict | None = None) -> threading.Thread | None:
-    """Write state to ``<ckpt_dir>/step_<step>`` (tmp + atomic rename)."""
+    """Write state to ``<ckpt_dir>/step_<step>`` (tmp + atomic rename).
+
+    A state holding DTensors is a collective: every rank gathers it, rank 0
+    writes it, and every rank returns once it is published (``blocking`` is
+    then ignored)."""
     os.makedirs(ckpt_dir, exist_ok=True)
     host = {}
     viewed: dict[str, str] = {}
+    sharded = False
     for path, leaf in leaf_paths(state):       # device -> host now
         k = _key(path)
+        sharded |= hasattr(leaf, "full_tensor")
         arr, dtname = _to_savable(torch.as_tensor(leaf))
         host[k] = arr
         if dtname:
@@ -80,6 +93,13 @@ def save(ckpt_dir: str, step: int, state, blocking: bool = True,
             shutil.rmtree(final)
         os.rename(tmp, final)
 
+    if sharded:
+        import torch.distributed as dist
+
+        if dist.get_rank() == 0:
+            _write()
+        dist.barrier()
+        return None
     if blocking:
         _write()
         return None
@@ -100,9 +120,16 @@ def latest_step(ckpt_dir: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, step: int, like, device=None):
+def restore(ckpt_dir: str, step: int, like, device=None, shardings=None):
     """Load a ``like``-structured state onto ``device`` (``None``: the card,
-    ``RuntimeError`` without one; pass ``device="cpu"`` for the host)."""
+    ``RuntimeError`` without one; pass ``device="cpu"`` for the host).
+
+    ``shardings`` (a tree of
+    :class:`~repro_torch.distributed.sharding.NamedSharding` with ``like``'s
+    nesting) places each leaf as a DTensor on its mesh; ``device`` is then
+    the mesh's."""
+    if shardings is not None and device is None:
+        device = mesh_device(leaves(shardings)[0].mesh)
     device = resolve_device(device)
     base = os.path.join(ckpt_dir, f"step_{step}")
     data = np.load(os.path.join(base, "state.npz"))
@@ -121,10 +148,13 @@ def restore(ckpt_dir: str, step: int, like, device=None):
                 torch.bfloat16)
         else:
             t = torch.from_numpy(np.array(arr, copy=True))
+        t = t.to(device)
+        if shardings is not None:
+            t = get_leaf(shardings, path).place(t)
         if isinstance(out, dict):
-            set_leaf(out, path, t.to(device))
+            set_leaf(out, path, t)
         else:
-            out = t.to(device)
+            out = t
     return out
 
 

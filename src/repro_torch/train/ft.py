@@ -1,15 +1,14 @@
-"""Fault tolerance: restartable training and straggler detection.
+"""Fault tolerance: restartable training, straggler detection, elastic remesh.
 
 Counterpart of ``repro/train/ft.py``, whose two classes are numpy code: the
 port keeps its own verbatim copy of them.  At thousand-node scale the
 assumptions are: (1) some host *will* fail mid-run -- recovery is
 restore-latest + replay, (2) some host will run slow before it fails --
-detect via step-time outliers and flag for eviction.  In one process the
-multi-host signals are simulated (tests inject failures/delays); the logic
-is the deployable part.
-
-Not ported yet: ``elastic_restore`` (restore onto a resized mesh), which
-needs the port's sharding layer (``ROADMAP.md`` A16).
+detect via step-time outliers and flag for eviction, (3) the replacement
+pool may change the world size -- checkpoints are mesh-agnostic, so the same
+state restores onto a resized mesh (:func:`elastic_restore`).  In one
+process the multi-host signals are simulated (tests inject
+failures/delays); the logic is the deployable part.
 """
 from __future__ import annotations
 
@@ -19,7 +18,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-__all__ = ["StragglerDetector", "RestartableLoop"]
+__all__ = ["StragglerDetector", "RestartableLoop", "elastic_restore"]
 
 
 @dataclass
@@ -99,3 +98,19 @@ class RestartableLoop:
                 data = self.data_iter_fn(step)   # deterministic replay point
         self.manager.wait()
         return state, step
+
+
+def elastic_restore(ckpt_dir: str, step: int, like, new_mesh, specs,
+                    fsdp: bool = True):
+    """Restore a checkpoint onto a *different* mesh (elastic scaling).
+
+    ``specs`` is the ParamSpec tree; shardings are re-derived from the new
+    mesh's named axes, so nothing about the checkpoint depends on the world
+    size it was written at.
+    """
+    from ..distributed.sharding import state_shardings
+    from .checkpoint import restore
+
+    shard = state_shardings(specs, new_mesh, fsdp)
+    return restore(ckpt_dir, step, like["params"] if "params" in like else like,
+                   shardings=shard)

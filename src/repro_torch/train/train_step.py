@@ -19,7 +19,7 @@ from dataclasses import dataclass, field
 
 import torch
 
-from ..models.layers import map_tree
+from ..models.layers import map_tree, shard
 from ..optim.adamw import AdamWConfig, adamw_update, init_opt_state
 from ..optim.schedule import warmup_cosine
 from ..tree import get_leaf, leaf_paths, set_leaf
@@ -47,8 +47,13 @@ def make_loss_fn(api, cfg, hp: TrainHParams):
             mask = torch.ones(tgt.shape, dtype=torch.float32,
                               device=tgt.device)
         lf = logits.float()
-        lse = torch.logsumexp(lf, dim=-1)
-        ll = torch.gather(lf, -1, tgt[..., None])[..., 0]
+        vd = lf.dim() - 1          # the vocab dim, counted from the front
+        lse = torch.logsumexp(lf, dim=vd)
+        # on vocab-sharded logits the gather is a partial sum over the model
+        # axis (one rank holds each target): resolve it while it has the
+        # gather's shape
+        ll = shard(torch.gather(lf, vd, tgt[..., None]),
+                   "batch", "seq", None)[..., 0]
         nll = (lse - ll) * mask
         denom = torch.clamp(torch.sum(mask), min=1.0)
         loss = torch.sum(nll) / denom
@@ -84,12 +89,34 @@ def _grads(loss_fn, params, batch):
         set_leaf(tree, path, leaf)
     total, aux = loss_fn(tree, batch)
     del tree
-    gs = torch.autograd.grad(total, leaves, materialize_grads=True)
+    gs = list(torch.autograd.grad(total, leaves, materialize_grads=True))
     del total, leaves
     grads = map_tree(lambda a: None, params)
-    for path, g in zip(paths, gs):
+    for i, path in enumerate(paths):
+        g, gs[i] = gs[i], None
+        p = get_leaf(params, path)
+        if hasattr(g, "placements") and g.placements != p.placements:
+            # a partial sum over the data axes reduced onto the parameter's
+            # shards (GSPMD's reduce-scatter): AdamW squares sums, not parts
+            g = g.redistribute(p.device_mesh, p.placements)
         set_leaf(grads, path, g)
     return grads, {k: v.detach() for k, v in aux.items()}
+
+
+def _micro(x: torch.Tensor, k: int, i: int) -> torch.Tensor:
+    """Microbatch ``i`` of ``k``: rows ``[i B/k, (i+1) B/k)`` of ``x``.
+
+    A batch sharded over the data axes cannot be split so in place (a
+    microbatch's rows live on a part of the ranks): the token batch is
+    gathered, split, and the microbatch placed over the data axes again,
+    as the reference's step constrains it."""
+    if not hasattr(x, "placements"):
+        return x.reshape(k, x.shape[0] // k, *x.shape[1:])[i]
+    from torch.distributed.tensor import Replicate
+
+    whole = x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+    mb = whole.reshape(k, x.shape[0] // k, *x.shape[1:])[i]
+    return shard(mb, "batch", *([None] * (mb.dim() - 1)))
 
 
 def make_train_step(api, cfg, hp: TrainHParams, moment_dtype=torch.float32,
@@ -111,11 +138,10 @@ def make_train_step(api, cfg, hp: TrainHParams, moment_dtype=torch.float32,
         if hp.microbatches <= 1:
             return _grads(loss_fn, params, batch)
         k = hp.microbatches
-        acc = map_tree(lambda p: torch.zeros(p.shape, dtype=acc_dt,
-                                             device=p.device), params)
+        # zeros_like: a DTensor leaf's accumulator takes its placements
+        acc = map_tree(lambda p: torch.zeros_like(p, dtype=acc_dt), params)
         for i in range(k):
-            mb = {key: x.reshape(k, x.shape[0] // k, *x.shape[1:])[i]
-                  for key, x in batch.items()}
+            mb = {key: _micro(x, k, i) for key, x in batch.items()}
             g, aux = _grads(loss_fn, params, mb)
             for path, a in leaf_paths(acc):
                 a.add_(get_leaf(g, path).to(acc_dt))

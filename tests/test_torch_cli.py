@@ -227,7 +227,10 @@ def test_argument_errors_exit_with_the_reference_message(case, tmp_path,
 
 @pytest.mark.parametrize("argv", [
     ["--backend-pallas"], ["--backend-unroll", "2"],
-    ["--backend-host-devices", "2"], ["--backend", "jax"]])
+    # --backend-host-devices is accepted now; --backend-unroll beside it
+    # is still refused
+    ["--backend-host-devices", "2", "--backend-unroll", "2"],
+    ["--backend", "jax"]])
 def test_reference_only_flags_are_refused(argv, capsys):
     with pytest.raises(SystemExit) as e:
         run_torch.main(argv)

@@ -3,7 +3,9 @@
 not on import (the kernel ops, the conformance harness and the port's
 benches included), not after a grid run, not after a fleet run, not after
 serving a request, not after a forward of every family of the model zoo,
-not after a whole ``Trainer.fit``."""
+not after a whole ``Trainer.fit`` (the distribution layer and the
+launchers, ``repro_torch.distributed`` and ``repro_torch.launch``,
+included)."""
 import re
 import subprocess
 import sys
@@ -37,6 +39,8 @@ import repro_torch.optim.grad_compress
 import repro_torch.train.train_step, repro_torch.train.trainer
 import repro_torch.train.checkpoint, repro_torch.train.ft
 import repro_torch.data.pipeline, repro_torch.roofline.analysis
+import repro_torch.distributed, repro_torch.distributed.sharding
+import repro_torch.launch, repro_torch.launch.mesh, repro_torch.launch.train
 import importlib.util
 for example in ("kvstore_demo_torch", "serve_tiered_kv_torch",
                 "quickstart_torch", "train_100m_torch"):

@@ -102,7 +102,8 @@ def test_trainer_resumes_from_its_checkpoints(tmp_path):
 
 def test_trainer_refuses_a_mesh_and_defaults_to_the_card(tmp_path):
     cfg = smoke_config(ARCHS["qwen2.5-3b"])
-    with pytest.raises(NotImplementedError, match="A16"):
+    # sharded training is ported: a mesh must be a named DeviceMesh
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Trainer(cfg, TrainHParams(), mesh=object(), ckpt_dir=str(tmp_path))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
