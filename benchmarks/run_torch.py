@@ -52,8 +52,9 @@ simulated SSD count and ``--cores`` the simulated host CPU core count.
 
 The default bench list is ``paper_figs_torch.ALL`` followed by
 ``kernels_bench_torch.ALL`` (flash, paged and wkv6 measured on the card;
-left out with ``--device cpu``, which one CSV row says).  The reference's
-``roofline_table`` parses XLA HLO and has no counterpart.  This module
+left out with ``--device cpu``, which one CSV row says) and
+``roofline_table_torch`` (the dry run's roofline terms, read from
+``experiments/dryrun_torch``).  This module
 imports torch, numpy and the port, never ``jax`` or the reference package.
 """
 from __future__ import annotations
@@ -265,8 +266,9 @@ def run_suite_cmd(suite_dir: str, out_path: str | None,
 
 def _benches(device) -> list:
     """The default bench list: the paper's figures, then the kernels'
-    measured rows (which need the card: left out on ``--device cpu``)."""
-    from . import paper_figs_torch
+    measured rows (which need the card: left out on ``--device cpu``), then
+    the dry run's roofline table."""
+    from . import paper_figs_torch, roofline_table_torch
 
     benches = [(f.__name__, f) for f in paper_figs_torch.ALL]
     import torch
@@ -280,6 +282,7 @@ def _benches(device) -> list:
         from . import kernels_bench_torch
 
         benches += [(f.__name__, f) for f in kernels_bench_torch.ALL]
+    benches.append(("roofline_table", roofline_table_torch.main))
     return benches
 
 

@@ -44,6 +44,12 @@ and drives the port's paths, each in a counted window of its own:
     ``examples/train_100m_torch.py`` (120 steps, its re-run, and a resume
     check bit for bit under deterministic algorithms).
 
+  * the dry run (``python -m repro_torch.launch.dryrun``): qwen2.5-3b's
+    production cells on the (16, 16) and (2, 16, 16) meshes counted under
+    ``FakeTensorMode`` on fake process groups, and the cell at the training
+    shape on a 1x1 mesh held against one real step on the card (FLOPs
+    equal, predicted memory against the measured peak).
+
   * the system's own entry points: ``python -m benchmarks.run_torch``
     (the scenario suite, one scenario and ``--engine lsm --cores 4``, held
     cell by cell against the host loop; then every paper figure and the
@@ -226,6 +232,12 @@ TRAIN_ARCH = "qwen2.5-3b"
 TRAIN_B, TRAIN_S = 2, 2048
 TRAIN_HP = dict(peak_lr=3e-4, warmup=1, total_steps=6)
 TRAIN_STEPS = 6
+# The dry run's production cells (``python -m repro_torch.launch.dryrun``, one
+# process a mesh, run side by side) and the band the 1x1 cell's predicted
+# per-device memory must fall in, as a multiple of the measured peak
+DRYRUN_CELLS = (("single", "train_4k,prefill_32k,decode_32k"),
+                ("multi", "train_4k"))
+DRYRUN_MEM_BAND = (0.8, 1.25)
 # The blockwise backward held against plain autograd of the same forward at
 # one layer of that model: B 2, S 2048, Hq 16, Hkv 2, D 128, causal, 1024-key
 # blocks.
@@ -2611,6 +2623,183 @@ def phase_dist_path(seed, train, sc, art):
     return rec
 
 
+def _dryrun_train_cell(mesh):
+    """The dry run's cell at ``train_path``'s shape: qwen2.5-3b at full
+    width and depth, B 2 x S 2048, one microbatch, per-layer remat."""
+    from repro_torch.launch.specs import make_cell
+
+    return make_cell(TRAIN_ARCH, "train_path", mesh,
+                     hp=TrainHParams(**TRAIN_HP),
+                     shape=Shape("train_path", TRAIN_S, TRAIN_B, "train"))
+
+
+def dryrun_one(out_path):
+    """``--dryrun-1x1 OUT``: the 1x1 cell counted as the dry run counts a
+    cell (``FakeTensorMode``, a fake process group of one rank, the card's
+    device type), its metrics written to ``OUT`` as JSON.  Run in a process
+    of its own: the fake group is the process's."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+
+    dryrun.fake_world(1)
+    mesh = make_local_mesh()
+    t0 = time.perf_counter()
+    m = dryrun.count_cell(_dryrun_train_cell(mesh), "cuda")
+    m["host_s"] = time.perf_counter() - t0
+    Path(out_path).write_text(json.dumps(m))
+
+
+def phase_dryrun_path(seed):
+    """The dry run (``repro_torch.launch.dryrun``) on the card's machine:
+
+    1. qwen2.5-3b's ``train_4k``, ``prefill_32k`` and ``decode_32k`` on the
+       (16, 16) mesh and ``train_4k`` on (2, 16, 16), each counted under
+       ``FakeTensorMode`` on a fake process group of the mesh's world (256
+       or 512 ranks), one process a mesh; every row ``ok``, printed with
+       its host seconds;
+    2. the cell at ``train_path``'s shape (1x1 mesh, B 2 x S 2048, one
+       microbatch, remat) counted the same way in a process of its own,
+       beside one real step of that cell on the card's 1x1 NCCL mesh from
+       the state ``dist_path`` draws, counted by the same
+       :class:`~repro_torch.roofline.analysis.OpCounter`: the FLOPs equal
+       to the count, the predicted per-device memory within
+       ``DRYRUN_MEM_BAND`` of the step's measured peak
+       (``max_memory_allocated`` past what was allocated before its state),
+       no hand-written kernel launched, and ``t_compute`` beside a second,
+       uncounted step's seconds."""
+    import gc
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import (batch_shardings, full,
+                                                  place_)
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.roofline.analysis import OpCounter, RooflineTerms
+    from repro_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    bad = []
+    out = OUT_DIR / "dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                               if p]))
+    one_path = out / "train_path_1x1.json"
+    cmds = {mesh_name: ["-m", "repro_torch.launch.dryrun", "--arch",
+                        TRAIN_ARCH, "--shape", shapes, "--mesh", mesh_name,
+                        "--out", str(out)]
+            for mesh_name, shapes in DRYRUN_CELLS}
+    cmds["1x1"] = [str(ROOT / "chip_smoke.py"), "--dryrun-1x1",
+                   str(one_path)]
+    procs = {k: (time.perf_counter(), subprocess.Popen(
+        [sys.executable, *v], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, cwd=ROOT, env=env)) for k, v in cmds.items()}
+
+    # the real step of the 1x1 cell, counted, while the counts run
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    mesh = make_local_mesh()
+    cell = _dryrun_train_cell(mesh)
+    with tempfile.TemporaryDirectory(prefix="dryrun_path_") as ck:
+        tr = Trainer(ARCHS[TRAIN_ARCH], TrainHParams(**TRAIN_HP), mesh=mesh,
+                     ckpt_dir=ck, ckpt_every=0, seed=seed)
+        tr.hp_global_batch, tr.hp_seq_len = TRAIN_B, TRAIN_S
+        state = tr.init_state()
+        data = tr.data_iter(0)
+        batches = [next(data) for _ in range(2)]
+    batches = [place_(dict(b), batch_shardings(b, mesh)) for b in batches]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    counter = OpCounter()
+    with counter:
+        state, metrics = cell.fn(state, batches[0])
+    torch.cuda.synchronize()
+    launches = counts()
+    measured = torch.cuda.max_memory_allocated() - base
+    loss = float(full(metrics["loss"]))
+    if any(launches.values()):
+        bad.append(f"the dry run's training cell launched a hand-written "
+                   f"kernel: {launches}")
+
+    runs = {}
+    for k, (t0, proc) in procs.items():
+        try:
+            so, se = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        runs[k] = {"wall_s": time.perf_counter() - t0,
+                   "rc": proc.returncode}
+        if proc.returncode != 0:
+            bad.append(f"dry run {k} exited {proc.returncode}: "
+                       f"{so[-1500:]} {se[-3000:]}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = cell.fn(state, batches[1])
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    del state, metrics, batches, cell
+    dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    if bad:
+        fail("dryrun_path: " + "; ".join(bad))
+
+    rows = []
+    for mesh_name, shapes in DRYRUN_CELLS:
+        for shape in shapes.split(","):
+            path = out / f"{TRAIN_ARCH}__{shape}__{mesh_name}.json"
+            r = json.loads(path.read_text())
+            rows.append({k: r.get(k) for k in (
+                "arch", "shape", "mesh", "status", "device", "chips",
+                "per_device_memory", "hlo_flops", "model_flops",
+                "t_compute", "t_memory", "t_collective", "bottleneck",
+                "useful_ratio", "coll_counts", "microbatches", "compile_s",
+                "error")})
+            print(json.dumps({"dryrun_row": rows[-1]}), flush=True)
+            if r.get("status") != "ok":
+                bad.append(f"{shape} on {mesh_name}: {r.get('status')} "
+                           f"{r.get('error', '')}")
+    one = json.loads(one_path.read_text())
+    predicted = one["mem"]["peak_memory_in_bytes"]
+    mem_ratio = predicted / measured
+    t_compute = RooflineTerms(arch=TRAIN_ARCH, shape="train_path",
+                              mesh="1x1", chips=1, hlo_flops=one["flops"],
+                              hlo_bytes=one["bytes"]).t_compute
+    if one["flops"] != counter.flops:
+        bad.append(f"1x1 cell: counted {one['flops']} FLOPs, the real step "
+                   f"{counter.flops}")
+    lo, hi = DRYRUN_MEM_BAND
+    if not lo <= mem_ratio <= hi:
+        bad.append(f"1x1 cell: predicted {predicted} B a device, the step's "
+                   f"peak {measured} B (ratio {mem_ratio:.3f} outside "
+                   f"[{lo}, {hi}])")
+    rec = dict(
+        rows=rows, processes=runs,
+        one_by_one={
+            "arch": TRAIN_ARCH, "batch": TRAIN_B, "seq": TRAIN_S,
+            "microbatches": 1, "remat": True,
+            "flops_counted": one["flops"], "flops_real_step": counter.flops,
+            "bytes_counted": one["bytes"], "bytes_real_step": counter.bytes,
+            "collectives_real_step": len(counter.collectives),
+            "predicted_bytes": predicted, "predicted_mem": one["mem"],
+            "measured_peak_bytes": measured, "memory_ratio": mem_ratio,
+            "memory_band": list(DRYRUN_MEM_BAND),
+            "t_compute_s": t_compute, "step_s": step_s,
+            "t_compute_over_step": t_compute / step_s, "loss": loss,
+            "count_host_s": one["host_s"]},
+        launches=launches, seconds=time.perf_counter() - t_phase)
+    emit("dryrun_path", **rec)
+    if bad:
+        fail("dryrun_path: " + "; ".join(bad))
+    return rec
+
+
 def _load_example(name):
     spec = importlib.util.spec_from_file_location(
         name, ROOT / "examples" / f"{name}.py")
@@ -3045,7 +3234,7 @@ def phase_paper_figs():
         fail("paper_figs: standalone token-clock launches")
     rows_t, walls_t = csv_rows(text)
     if sorted(walls_t) != sorted(FIG_NAMES + tuple(
-            f.__name__ for f in kbench.ALL)):
+            f.__name__ for f in kbench.ALL) + ("roofline_table",)):
         fail(f"paper_figs: benches run {sorted(walls_t)}")
     for name, (us, derived) in rows_t.items():
         if not math.isfinite(us) or us < 0 or "nan" in derived:
@@ -3306,9 +3495,16 @@ def main():
                     help="only the training example's resume check, "
                          "checkpointing into DIR (run by the train_example "
                          "phase in a process of its own)")
+    ap.add_argument("--dryrun-1x1", metavar="OUT",
+                    help="only the dry run's count of the 1x1 training "
+                         "cell, written to OUT (run by the dryrun_path "
+                         "phase in a process of its own)")
     args = ap.parse_args()
     if args.resume_check:
         resume_check(args.resume_check)
+        return
+    if args.dryrun_1x1:
+        dryrun_one(args.dryrun_1x1)
         return
     t_all = time.perf_counter()
     torch.cuda.set_device(0)
@@ -3494,6 +3690,7 @@ def main():
     phase_dist_path(args.seed, train, sc, art)
     del train
     torch.cuda.empty_cache()
+    phase_dryrun_path(args.seed)
     phase_train_example()
     torch.cuda.empty_cache()
 

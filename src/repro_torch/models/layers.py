@@ -49,6 +49,11 @@ __all__ = [
     "logical_to_pspec",
     "shard",
     "local_call",
+    "head_axis",
+    "split_dim",
+    "merge_dims",
+    "reduce_proj",
+    "write_slot",
     "map_tree",
     "take_layer",
     "layer_views",
@@ -149,7 +154,9 @@ def logical_to_pspec(axes: tuple[str | None, ...], rules: dict[str, Any]) -> tup
 
 def shard(x: torch.Tensor, *axes: str | None) -> torch.Tensor:
     """Constrain ``x``'s placement by logical axis names: a DTensor is
-    redistributed to the rule's placements on the context's mesh.  The
+    redistributed to the rule's placements on the context's mesh, and so is
+    its gradient (a sharding constraint binds the cotangent too, as GSPMD's
+    does: a partial-sum gradient is reduced where the forward was).  The
     identity without a context or on a plain tensor."""
     if not _MESH_CTX:
         return x
@@ -160,10 +167,144 @@ def shard(x: torch.Tensor, *axes: str | None) -> torch.Tensor:
     from ..distributed.sharding import placements
 
     mesh, rules = _MESH_CTX[-1]
-    want = placements(logical_to_pspec(axes, rules), mesh)
-    if tuple(x.placements) == want:
-        return x
-    return x.redistribute(mesh, want)
+    want = _even(placements(logical_to_pspec(axes, rules), mesh), x.shape,
+                 mesh)
+    if not (x.requires_grad and torch.is_grad_enabled()):
+        return x if tuple(x.placements) == want else x.redistribute(mesh, want)
+    return _Constrain.apply(x, mesh, want)
+
+
+def _even(pl: tuple, shape, mesh) -> tuple:
+    """``pl`` with every shard of a dim its mesh dims do not divide evenly
+    replaced by ``Replicate``: DTensor's uneven shards cannot be viewed
+    (24 heads over 16 ranks), where GSPMD pads them."""
+    from torch.distributed.tensor import Replicate
+
+    ext: dict[int, int] = {}
+    for m, p in enumerate(pl):
+        if p.is_shard():
+            ext[p.dim] = ext.get(p.dim, 1) * mesh.size(m)
+    return tuple(Replicate() if p.is_shard() and shape[p.dim] % ext[p.dim]
+                 else p for p in pl)
+
+
+def write_slot(cache: torch.Tensor, slot: torch.Tensor,
+               val: torch.Tensor) -> None:
+    """``cache[:, slot] = val`` in place, ``slot`` a one-element long
+    tensor (the decode caches' ring slot).  Where a mesh shards dim 1 (the
+    sequence-sharded decode caches) each rank writes the slot only where
+    its slice holds it, through a masked copy: DTensor's ``index_copy_``
+    would index the local slice with the global slot."""
+    if not any(p.is_shard(1) for p in getattr(cache, "placements", ())):
+        cache.index_copy_(1, slot, val)
+        return
+    hit = torch.arange(cache.shape[1], device=cache.device) == slot
+    cache.copy_(torch.where(hit.view(1, -1, *[1] * (cache.dim() - 2)), val,
+                            cache))
+
+
+class _Constrain(torch.autograd.Function):
+    """``shard`` on a tensor that needs a gradient: the value and the
+    gradient both redistributed to ``want``; the gradient then goes back to
+    the input's placements (a partial sum's as replicated), as DTensor's
+    own ``redistribute`` backward does."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, want):
+        from torch.distributed.tensor import Replicate
+
+        ctx.mesh, ctx.want = mesh, want
+        ctx.back = tuple(Replicate() if p.is_partial() else p
+                         for p in x.placements)
+        return x.redistribute(mesh, want) if tuple(x.placements) != want \
+            else x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        for pl in (ctx.want, ctx.back):
+            if tuple(g.placements) != pl:
+                g = g.redistribute(ctx.mesh, pl)
+        return g, None, None
+
+
+def split_dim(x: torch.Tensor, dim: int, sizes: tuple) -> torch.Tensor:
+    """``x`` with dim ``dim`` split into ``sizes`` (a reshape).  A DTensor
+    that shards ``dim`` over mesh dims whose extent does not divide
+    ``sizes[0]`` (2 KV heads, or 24 heads, over a model axis of 16) is made
+    whole along those mesh dims first: DTensor cannot unflatten an uneven
+    shard, where GSPMD pads it."""
+    dim %= x.dim()
+    shape = (*x.shape[:dim], *sizes, *x.shape[dim + 1:])
+    if hasattr(x, "placements"):
+        mesh = x.device_mesh
+        on = [m for m, p in enumerate(x.placements) if p.is_shard(dim)]
+        if sizes[0] % math.prod(mesh.size(m) for m in on):
+            from torch.distributed.tensor import Replicate
+
+            x = x.redistribute(mesh, [Replicate() if m in on else p
+                                      for m, p in enumerate(x.placements)])
+        if x.requires_grad and torch.is_grad_enabled():
+            return _Split.apply(x, dim, tuple(sizes))
+    return x.reshape(shape)
+
+
+class _Split(torch.autograd.Function):
+    """:func:`split_dim`'s reshape, its gradient merged back through
+    :func:`merge_dims` (DTensor's layouts may leave it unevenly sharded)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, sizes):
+        ctx.dim, ctx.count = dim, len(sizes)
+        return x.reshape(*x.shape[:dim], *sizes, *x.shape[dim + 1:])
+
+    @staticmethod
+    def backward(ctx, g):
+        return merge_dims(g, ctx.dim, ctx.count), None, None
+
+
+def merge_dims(x: torch.Tensor, dim: int, count: int = 2) -> torch.Tensor:
+    """``x`` with dims ``dim .. dim+count-1`` merged into one (a reshape).
+    A DTensor sharded unevenly (DTensor's own layouts may be: 40 heads over
+    16 ranks) is made whole along those mesh dims first, and on one that
+    needs a gradient the gradient is split back through :func:`split_dim`:
+    a gradient sharded over the merged dim (the heads' ``wo`` rows) cannot
+    be unflattened into heads the mesh does not divide."""
+    dim %= x.dim()
+    if not hasattr(x, "placements"):
+        return x.reshape(*x.shape[:dim], -1, *x.shape[dim + count:])
+    even = _even(tuple(x.placements), x.shape, x.device_mesh)
+    if even != tuple(x.placements):     # nor flatten one
+        x = x.redistribute(x.device_mesh, even)
+    if not (x.requires_grad and torch.is_grad_enabled()):
+        return x.reshape(*x.shape[:dim], -1, *x.shape[dim + count:])
+    return _Merge.apply(x, dim, tuple(x.shape[dim:dim + count]))
+
+
+class _Merge(torch.autograd.Function):
+    """:func:`merge_dims`' reshape, its gradient split back through
+    :func:`split_dim`."""
+
+    @staticmethod
+    def forward(ctx, x, dim, sizes):
+        ctx.dim, ctx.sizes = dim, sizes
+        return x.reshape(*x.shape[:dim], -1, *x.shape[dim + len(sizes):])
+
+    @staticmethod
+    def backward(ctx, g):
+        return split_dim(g, ctx.dim, ctx.sizes), None, None
+
+
+def reduce_proj(h: torch.Tensor, w: torch.Tensor, *axes: str | None) -> torch.Tensor:
+    """``h @ w`` constrained to logical ``axes``, for a projection whose
+    contraction dim a mesh splits (the model-sharded heads into ``wo``):
+    there each rank's partial product is taken in float32 and the partials
+    are reduced in float32, then rounded once to ``h``'s dtype, as one
+    device's float32 accumulation is (partials rounded to bfloat16 first
+    would round twice).  Elsewhere the plain product."""
+    if not any(p.is_shard(h.dim() - 1) and h.device_mesh.size(m) > 1
+               for m, p in enumerate(getattr(h, "placements", ()))):
+        return shard(h @ w, *axes)
+    return shard(h.float() @ w.float(), *axes).to(h.dtype)
 
 
 def local_call(fn, in_axes: tuple, out_axes: tuple, *args):
@@ -186,11 +327,18 @@ def local_call(fn, in_axes: tuple, out_axes: tuple, *args):
     from ..distributed.sharding import placements
 
     mesh, rules = _MESH_CTX[-1]
-    pl = lambda axes: placements(logical_to_pspec(axes, rules), mesh)
+    # a logical axis some argument's dim cannot split evenly stays whole
+    # for every argument and output (a batch of one), as ``shard`` leaves it
+    uneven = {n for a, ax in zip(args, in_axes) if ax is not None
+              for d, n in enumerate(ax)
+              if n is not None and a.shape[d] % _rule_extent(n)}
+    pl = lambda axes: placements(logical_to_pspec(
+        tuple(None if n in uneven else n for n in axes), rules), mesh)
     whole = lambda a: (a if hasattr(a, "placements") else DTensor.from_local(
         a, mesh, [Replicate()] * mesh.ndim, run_check=False))
-    args = tuple(a if ax is None else shard(whole(a), *ax)
-                 for a, ax in zip(args, in_axes))
+    args = tuple(a if ax is None else shard(whole(a), *(
+        None if n in uneven else n for n in ax))
+        for a, ax in zip(args, in_axes))
     ins = tuple(None if ax is None else pl(ax) for ax in in_axes)
     split = {m for p in ins if p is not None
              for m, q in enumerate(p) if q.is_shard()}
@@ -316,22 +464,39 @@ def attention(
     of ``block_kv`` with an online softmax, so the S x S score matrix is never
     formed, forward or backward (the reference's blockwise attention and
     its custom backward, :class:`_FlashFn`).  Query heads
-    stay grouped (B, S, Hkv, rep, D), so repeated KV is never formed.
+    stay grouped (B, S, Hkv, rep, D), so repeated KV is never formed, save
+    on a mesh whose model axes divide the query heads and not the KV heads.
     """
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
+    n = _rule_extent("heads")
+    if Hkv % n and not Hq % n:
+        # on a mesh whose model axes divide the query heads but not the KV
+        # heads, GSPMD tiles the heads over (KV head, group); DTensor cannot
+        # shard one tensor dim over two, so each KV head is repeated over
+        # its group and every head shards as the query heads do
+        k, v = (shard(t[:, :, :, None].expand(B, S, Hkv, Hq // Hkv, D)
+                      .reshape(B, S, Hq, D), "batch", None, "heads", None)
+                for t in (k, v))
+        Hkv = Hq
     rep = Hq // Hkv
     if S <= block_kv:  # small enough: single dense block
         scale = 1.0 / math.sqrt(D)
-        qg = q.reshape(B, S, Hkv, rep, D).float() * scale
+        qg = split_dim(q, 2, (Hkv, rep)).float() * scale
         return _attn_dense(qg, k, v, causal, sliding_window).to(q.dtype)
     win = 0 if sliding_window is None else int(sliding_window)
     # on a mesh: each rank's (batch, head) block alone, the KV heads split
     # as the query heads when the model axes divide them
-    heads = "heads" if Hkv % _rule_extent("heads") == 0 else None
-    ax = ("batch", None, heads, None)
+    ax = ("batch", None, head_axis(Hkv), None)
     return local_call(_FlashFn.apply, (ax, ax, ax, None, None, None), (ax,),
                       q, k, v, bool(causal), win, int(block_kv))
+
+
+def head_axis(n_heads: int) -> str | None:
+    """The logical axis of a heads dim of ``n_heads`` for :func:`local_call`:
+    ``"heads"`` where the active mesh's heads rule divides it, else ``None``
+    (whole on every rank)."""
+    return "heads" if n_heads % _rule_extent("heads") == 0 else None
 
 
 def _rule_extent(name: str) -> int:
@@ -468,7 +633,7 @@ class _FlashFn(torch.autograd.Function):
 
 def _attn_dense(qg, k, v, causal, sliding_window):
     """qg: (B,S,Hkv,rep,D) fp32 pre-scaled; k, v: (B,S,Hkv,D)."""
-    B, S, Hkv, rep, D = qg.shape
+    S = qg.shape[1]
     s = torch.einsum("bqhrd,bkhd->bhrqk", qg, k.float())
     q_pos = torch.arange(S, device=qg.device)
     mask = torch.ones((S, S), dtype=torch.bool, device=qg.device)
@@ -479,7 +644,7 @@ def _attn_dense(qg, k, v, causal, sliding_window):
     s = torch.where(mask[None, None, None], s, -math.inf)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhrqk,bkhd->bqhrd", p, v.float())
-    return out.reshape(B, S, Hkv * rep, D)
+    return merge_dims(out, 2)
 
 
 def decode_attention(
@@ -504,7 +669,7 @@ def decode_attention(
     kf = k_cache.float()
     vf = v_cache.float()
     if n_rep > 1:
-        qf = qf.reshape(B, 1, Hkv, n_rep, D)
+        qf = split_dim(qf, 2, (Hkv, n_rep))
         s = torch.einsum("bqhrd,bkhd->bhrqk", qf, kf)   # (B,Hkv,rep,1,S)
     else:
         s = torch.einsum("bqhd,bkhd->bhqk", qf, kf)[:, :, None]
@@ -532,4 +697,4 @@ def mlp(x: torch.Tensor, w: dict, kind: str = "swiglu") -> torch.Tensor:
         h = x @ w["wi"]
         h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
     h = shard(h, "batch", "seq", "mlp")
-    return h @ w["wo"]
+    return reduce_proj(h, w["wo"], "batch", "seq_res", "embed")

@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.sim.replay_torch import resolve_device
-from .layers import DTYPE, ParamSpec, rms_norm, shard
+from .layers import DTYPE, ParamSpec, rms_norm, shard, split_dim
 
 __all__ = [
     "block_specs",
@@ -81,10 +81,9 @@ def _conv(xBC, lw, cache=None):
 
 def _ssm_inputs(xBC, dt, lw, cfg):
     d_inner, H, G, N, _, _ = dims(cfg)
-    B_, S = xBC.shape[0], xBC.shape[1]
-    xs = xBC[..., :d_inner].reshape(B_, S, H, cfg.ssm_head_dim)
-    Bm = xBC[..., d_inner: d_inner + G * N].reshape(B_, S, G, N)
-    Cm = xBC[..., d_inner + G * N:].reshape(B_, S, G, N)
+    xs = split_dim(xBC[..., :d_inner], 2, (H, cfg.ssm_head_dim))
+    Bm = split_dim(xBC[..., d_inner: d_inner + G * N], 2, (G, N))
+    Cm = split_dim(xBC[..., d_inner + G * N:], 2, (G, N))
     rep = H // G
     Bh = torch.repeat_interleave(Bm, rep, dim=2)            # (B,S,H,N)
     Ch = torch.repeat_interleave(Cm, rep, dim=2)

@@ -22,8 +22,9 @@ import torch
 import torch.nn.functional as F
 
 from ..core.sim.replay_torch import resolve_device
-from .layers import (DTYPE, ParamSpec, embed, layer_norm, layer_views,
-                     remat_call, shard, take_layer)
+from .layers import (DTYPE, ParamSpec, embed, head_axis, layer_norm,
+                     layer_views, local_call, merge_dims, remat_call, shard,
+                     split_dim, take_layer)
 
 __all__ = ["param_specs", "forward", "decode_step", "init_state",
            "wkv_chunked"]
@@ -82,8 +83,7 @@ def _time_mix_inputs(x, x_prev, lw):
     """Token-shift DDLerp -> (xk, xv, xr, xg) and decay w (log-space)."""
     sx = x_prev - x
     xxx = x + sx * lw["maa_x"]
-    B, S, d = x.shape
-    lo = torch.tanh(xxx @ lw["maa_w1"]).reshape(B, S, 5, TM_LORA)
+    lo = split_dim(torch.tanh(xxx @ lw["maa_w1"]), 2, (5, TM_LORA))
     mix = torch.einsum("bsfr,frd->bsfd", lo, lw["maa_w2"]) + lw["maa_wkvrg"]
     xs = x[:, :, None] + sx[:, :, None] * mix              # (B,S,5,d)
     xw, xk, xv, xr, xg = xs.unbind(2)
@@ -134,7 +134,7 @@ def wkv_chunked(r, k, v, log_w, u, chunk: int, state0=None, unroll: int = 0):
 
 
 def _heads(t, H, Dh):
-    return t.reshape(*t.shape[:2], H, Dh).float()
+    return split_dim(t, 2, (H, Dh)).float()
 
 
 def _wkv_inputs(x, x_prev, lw, cfg):
@@ -146,7 +146,7 @@ def _wkv_inputs(x, x_prev, lw, cfg):
     k = _heads(xk @ lw["wk"], H, Dh)
     v = _heads(xv @ lw["wv"], H, Dh)
     g = xg @ lw["wg"]
-    lwh = log_w.reshape(*log_w.shape[:2], H, Dh)
+    lwh = split_dim(log_w, 2, (H, Dh))
     return r, k, v, g, lwh, lw["bonus_u"].float()
 
 
@@ -161,16 +161,22 @@ def _time_mix(x, x_prev, lw, cfg, state0=None, decode=False):
             + k[:, 0, :, :, None] * v[:, 0, :, None, :]
         y, final = out_t[:, None], new_state
     else:
-        y, final = wkv_chunked(r, k, v, lwh, u, cfg.ssm_chunk, state0,
-                               unroll=cfg.unroll_inner)
-    B, S = x.shape[:2]
-    y = y.reshape(B, S, H * Dh).to(DTYPE)
+        # on a mesh each rank runs its own (batch, head) block: the chunk
+        # loop's ops are shard-local, as in the reference's layout
+        ax, heads = ("batch", None, head_axis(H), None), head_axis(H)
+        y, final = local_call(
+            lambda r, k, v, lw, u, s0: wkv_chunked(r, k, v, lw, u,
+                                                   cfg.ssm_chunk, s0),
+            (ax, ax, ax, ax, (heads, None),
+             None if state0 is None else ("batch", heads, None, None)),
+            (ax, ("batch", heads, None, None)), r, k, v, lwh, u, state0)
+    y = merge_dims(y, 2).to(DTYPE)
     # per-head group norm == LayerNorm over each head's channels
-    yh = y.reshape(B, S, H, Dh).float()
+    yh = split_dim(y, 2, (H, Dh)).float()
     mu = yh.mean(-1, keepdim=True)
     var = yh.var(-1, keepdim=True, unbiased=False)
     yh = (yh - mu) * torch.rsqrt(var + 64e-5)
-    y = yh.reshape(B, S, H * Dh).to(DTYPE) * lw["gn"] + lw["gn_b"]
+    y = merge_dims(yh, 2).to(DTYPE) * lw["gn"] + lw["gn_b"]
     y = y * F.silu(g.float()).to(DTYPE)
     return y @ lw["wo"], final
 

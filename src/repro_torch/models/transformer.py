@@ -31,12 +31,16 @@ from .layers import (
     embed,
     layer_norm,
     layer_views,
+    merge_dims,
     mlp,
+    reduce_proj,
     remat_call,
     rms_norm,
     rope,
     shard,
+    split_dim,
     take_layer,
+    write_slot,
 )
 
 __all__ = [
@@ -109,16 +113,15 @@ def _norm(x, w, cfg, gamma_key, beta_key, lw=None):
 
 
 def _qkv(x, lw, cfg, positions):
-    B, S, d = x.shape
     dh = cfg.head_dim
     q = x @ lw["wq"]
     k = x @ lw["wk"]
     v = x @ lw["wv"]
     if cfg.qkv_bias:
         q, k, v = q + lw["bq"], k + lw["bk"], v + lw["bv"]
-    q = q.reshape(B, S, cfg.n_heads, dh)
-    k = k.reshape(B, S, cfg.n_kv_heads, dh)
-    v = v.reshape(B, S, cfg.n_kv_heads, dh)
+    q = split_dim(q, 2, (cfg.n_heads, dh))
+    k = split_dim(k, 2, (cfg.n_kv_heads, dh))
+    v = split_dim(v, 2, (cfg.n_kv_heads, dh))
     q = shard(q, "batch", "seq", "heads", None)
     if cfg.use_rope:
         q = rope(q, positions, cfg.rope_theta)
@@ -146,7 +149,12 @@ def _attn_block(x, lw, cfg, positions):
         q, k, v, causal=cfg.causal, sliding_window=cfg.sliding_window,
         block_kv=cfg.attn_block_kv,
     )
-    return x + o.reshape(*o.shape[:2], -1) @ lw["wo"], k, v
+    # the output projection contracts the model-sharded heads: its partial
+    # sums are reduced here, or they would flow into the FFN (whose matmuls
+    # DTensor then runs on whole weights)
+    o = reduce_proj(merge_dims(o, 2), lw["wo"],
+                    "batch", "seq_res", "embed")
+    return x + o, k, v
 
 
 def _layer_body(x, lw, cfg, positions):
@@ -229,8 +237,8 @@ def _decode_attn_block(x, lw, k_cache, v_cache, pos, cfg):
     q, k, v = _qkv(h, lw, cfg, pos[:, None].expand(B, 1))
     W = k_cache.shape[1]
     slot = (pos[:1] % W).long()
-    k_cache.index_copy_(1, slot, k)
-    v_cache.index_copy_(1, slot, v)
+    write_slot(k_cache, slot, k)
+    write_slot(v_cache, slot, v)
     cache_len = torch.clamp(pos[:1] + 1, max=W)
     o = decode_attention(q, k_cache, v_cache, cache_len)
     return x + o.reshape(B, 1, -1) @ lw["wo"]

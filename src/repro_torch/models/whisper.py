@@ -27,9 +27,13 @@ from .layers import (
     embed,
     layer_norm,
     layer_views,
+    merge_dims,
+    reduce_proj,
     remat_call,
     shard,
+    split_dim,
     take_layer,
+    write_slot,
 )
 
 __all__ = ["param_specs", "forward", "encode", "decode_step", "init_cache",
@@ -101,21 +105,22 @@ def _sinusoid(T: int, d: int, device=None) -> torch.Tensor:
 
 
 def _mha(x, kv, lw, cfg, prefix="", causal=False):
-    B, S, d = x.shape
+    S, d = x.shape[1:]
     H = cfg.n_heads
     dh = d // H
     q = x @ lw[prefix + "wq"] + lw[prefix + "bq"]
     k = kv @ lw[prefix + "wk"]
     v = kv @ lw[prefix + "wv"] + lw[prefix + "bv"]
     Skv = kv.shape[1]
-    q = q.reshape(B, S, H, dh)
-    k = k.reshape(B, Skv, H, dh)
-    v = v.reshape(B, Skv, H, dh)
+    q = split_dim(q, 2, (H, dh))
+    k = split_dim(k, 2, (H, dh))
+    v = split_dim(v, 2, (H, dh))
     if S == Skv:
         o = attention(q, k, v, causal=causal, block_kv=cfg.attn_block_kv)
     else:  # cross-attention, never causal
         o = _cross_attn(q, k, v)
-    return o.reshape(B, S, d) @ lw[prefix + "wo"] + lw[prefix + "bo"]
+    return reduce_proj(merge_dims(o, 2), lw[prefix + "wo"], "batch",
+                       "seq_res", "embed") + lw[prefix + "bo"]
 
 
 def _cross_attn(q, k, v):
@@ -129,7 +134,8 @@ def _ffn(x, lw):
     h = x @ lw["mlp"]["wi"] + lw["mlp"]["bi"]
     h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
     h = shard(h, "batch", "seq", "mlp")
-    return h @ lw["mlp"]["wo"] + lw["mlp"]["bo"]
+    return reduce_proj(h, lw["mlp"]["wo"], "batch", "seq_res",
+                       "embed") + lw["mlp"]["bo"]
 
 
 def encode(params, frames, cfg, remat: bool = True):
@@ -198,14 +204,14 @@ def init_cache(cfg, batch: int, max_len: int, n_frames: int,
 def precompute_cross_kv(params, enc_out, cfg):
     """Cross-attention K/V per decoder layer from the encoder output:
     (L, B, T, H, dh) each."""
-    B, T, d = enc_out.shape
+    d = enc_out.shape[2]
     H = cfg.n_heads
     dh = d // H
     xk, xv = [], []
     for li in range(cfg.n_layers):
         lw = take_layer(params["dec"], li)
-        xk.append((enc_out @ lw["x_wk"]).reshape(B, T, H, dh))
-        xv.append((enc_out @ lw["x_wv"] + lw["x_bv"]).reshape(B, T, H, dh))
+        xk.append(split_dim(enc_out @ lw["x_wk"], 2, (H, dh)))
+        xv.append(split_dim(enc_out @ lw["x_wv"] + lw["x_bv"], 2, (H, dh)))
     return torch.stack(xk), torch.stack(xv)
 
 
@@ -224,15 +230,15 @@ def decode_step(params, cache, tokens, cfg):
         lw = take_layer(params["dec"], li)
         xk, xv = cache["xk"][li], cache["xv"][li]
         h = layer_norm(x, lw["ln1"], lw["ln1_b"])
-        q = (h @ lw["wq"] + lw["bq"]).reshape(B, 1, H, dh)
-        k = (h @ lw["wk"]).reshape(B, 1, H, dh)
-        v = (h @ lw["wv"] + lw["bv"]).reshape(B, 1, H, dh)
-        k_all[li].index_copy_(1, at, k)
-        v_all[li].index_copy_(1, at, v)
+        q = split_dim(h @ lw["wq"] + lw["bq"], 2, (H, dh))
+        k = split_dim(h @ lw["wk"], 2, (H, dh))
+        v = split_dim(h @ lw["wv"] + lw["bv"], 2, (H, dh))
+        write_slot(k_all[li], at, k)
+        write_slot(v_all[li], at, v)
         o = decode_attention(q, k_all[li], v_all[li], pos[:1] + 1)
         x = x + o.reshape(B, 1, -1) @ lw["wo"] + lw["bo"]
         h = layer_norm(x, lw["lnx"], lw["lnx_b"])
-        q = (h @ lw["x_wq"] + lw["x_bq"]).reshape(B, 1, H, dh)
+        q = split_dim(h @ lw["x_wq"] + lw["x_bq"], 2, (H, dh))
         o = decode_attention(q, xk, xv, xk.shape[1])
         x = x + o.reshape(B, 1, -1) @ lw["x_wo"] + lw["x_bo"]
         h = layer_norm(x, lw["ln2"], lw["ln2_b"])

@@ -1,2 +1,3 @@
-"""Model-level accounting (:mod:`.analysis`): parameter counts and model
-FLOPs.  The reference's HLO-based roofline has no counterpart here."""
+"""Model-level accounting (:mod:`.analysis`): parameter counts, model
+FLOPs, and the dry run's roofline terms counted from the ops a rank
+dispatches (``OpCounter``, ``RooflineTerms``)."""

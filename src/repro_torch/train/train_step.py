@@ -47,20 +47,76 @@ def make_loss_fn(api, cfg, hp: TrainHParams):
             mask = torch.ones(tgt.shape, dtype=torch.float32,
                               device=tgt.device)
         lf = logits.float()
-        vd = lf.dim() - 1          # the vocab dim, counted from the front
-        lse = torch.logsumexp(lf, dim=vd)
-        # on vocab-sharded logits the gather is a partial sum over the model
-        # axis (one rank holds each target): resolve it while it has the
-        # gather's shape
-        ll = shard(torch.gather(lf, vd, tgt[..., None]),
-                   "batch", "seq", None)[..., 0]
-        nll = (lse - ll) * mask
+        nll = (_logsumexp(lf) - _target_logits(lf, tgt)) * mask
         denom = torch.clamp(torch.sum(mask), min=1.0)
         loss = torch.sum(nll) / denom
         total = loss + hp.aux_weight * aux
         return total, {"loss": loss, "aux": aux, "tokens": denom}
 
     return loss_fn
+
+
+def _vocab_split(lf: torch.Tensor) -> bool:
+    """Whether a mesh splits ``lf``'s last (vocab) dim over more than one
+    rank."""
+    vd = lf.dim() - 1
+    return any(p.is_shard(vd) and lf.device_mesh.size(m) > 1
+               for m, p in enumerate(getattr(lf, "placements", ())))
+
+
+def _logsumexp(lf: torch.Tensor) -> torch.Tensor:
+    """``logsumexp`` over the vocab (last) dim.  Where a mesh splits the
+    vocab, the max and the sum of exponentials are partial results
+    all-reduced over it (DTensor's ``logsumexp`` gathers the whole vocab),
+    and the max is a constant of the gradient, as in ``logsumexp``'s own
+    backward."""
+    vd = lf.dim() - 1
+    if not _vocab_split(lf):
+        return torch.logsumexp(lf, dim=vd)
+    m = shard(lf.detach().amax(dim=vd, keepdim=True), "batch", "seq", None)
+    s = shard(torch.sum(torch.exp(lf - m), dim=vd), "batch", "seq")
+    return torch.log(s) + m[..., 0]
+
+
+def _target_logits(lf: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
+    """``lf[..., tgt]``: each position's logit of its target.
+
+    On a mesh that shards the vocab dim, each rank picks the targets its
+    vocab slice holds and the picks are a partial sum over those mesh dims
+    (GSPMD's masked gather), so neither direction forms the whole vocab (a
+    DTensor gather's backward does, over the whole batch).  Bit for bit the
+    plain gather: the ranks that do not hold a target add exact zeros."""
+    vd = lf.dim() - 1
+    if not _vocab_split(lf):
+        return shard(torch.gather(lf, vd, tgt[..., None]),
+                     "batch", "seq", None)[..., 0]
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, pl = lf.device_mesh, tuple(lf.placements)
+    t_pl = tuple(Replicate() if p.is_shard(vd) else p for p in pl)
+    o_pl = tuple(Partial() if p.is_shard(vd) else p for p in pl)
+    if not hasattr(tgt, "placements"):
+        tgt = DTensor.from_local(tgt, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    tgt = tgt.redistribute(mesh, t_pl)
+    # this rank's first vocab row: DTensor's chunks, over the mesh dims in order
+    off, size = 0, lf.shape[vd]
+    for m, c in enumerate(mesh.get_coordinate()):
+        if pl[m].is_shard(vd):
+            chunk = -(-size // mesh.size(m))
+            off += c * chunk
+            size = max(min(chunk, size - c * chunk), 0)
+
+    def pick(lf_loc, tgt_loc):
+        n = lf_loc.shape[vd]
+        idx = tgt_loc - off
+        got = torch.gather(lf_loc, vd, idx.clamp(0, n - 1)[..., None])[..., 0]
+        return torch.where((idx >= 0) & (idx < n), got, 0.0)
+
+    ll = local_map(pick, out_placements=(o_pl,), in_placements=(pl, t_pl),
+                   in_grad_placements=(pl, t_pl), device_mesh=mesh)(lf, tgt)
+    return shard(ll, "batch", "seq")
 
 
 def _adamw_config(hp: TrainHParams, moment_dtype) -> AdamWConfig:

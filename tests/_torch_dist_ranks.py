@@ -220,15 +220,54 @@ def job_world8(rank, out, ref_dir, tmp):
 
 
 def job_world4(rank, out):
-    """On 4 ranks, a (2, 2) mesh: deepseek-moe-16b's steps from the port's
-    own seed-0 parameters, in bfloat16 and in float32."""
+    """On 4 ranks: a (2, 2) mesh, deepseek-moe-16b's steps from the port's
+    own seed-0 parameters, in bfloat16 and in float32; then a (1, 4) mesh,
+    each ``UNEVEN_CASES`` case's steps on it and (rank 0) with
+    ``mesh=None``."""
     from repro_torch.launch.mesh import make_local_mesh
 
+    import importlib
+
+    mods = [importlib.import_module(f"repro_torch.models.{name}")
+            for name in F32_MODULES]
+    dtypes = [m.DTYPE for m in mods]
     mesh = make_local_mesh(2, 2, device="cpu")
     res = {"moe22": {dt: moe_steps(dt, mesh)
-                     for dt in ("bfloat16", "float32")}}
+                     for dt in ("bfloat16", "float32")}, "uneven": {}}
+    for m, dt in zip(mods, dtypes):     # the float32 run set them
+        m.DTYPE = dt
+    mesh = make_local_mesh(1, 4, device="cpu")
+    for arch, bs in UNEVEN_CASES:
+        got = uneven_steps(arch, bs, mesh)
+        if rank == 0:
+            res["uneven"][f"{arch}/{bs}"] = {
+                "mesh": got, "plain": uneven_steps(arch, bs)}
     if rank == 0:
         torch.save(res, os.path.join(out, "world4.pt"))
+
+
+#: the 1x4 cases: (arch, (batch, seq)); qwen2.5-3b's 4 query heads over
+#: a model axis of 4 leave its 2 KV heads unsplittable (S 64: the dense
+#: attention), and rwkv6-3b's token-shift LoRA reshape (B, S, 5, 32) meets
+#: a flat 160 over 4 ranks
+UNEVEN_CASES = (("qwen2.5-3b", (8, 64)), ("rwkv6-3b", (8, 64)))
+
+
+def uneven_steps(arch: str, bs: tuple, mesh=None):
+    """The smoke ``arch``'s steps from the port's seed-0 parameters on the
+    seed-0 synthetic batch of ``bs`` (batch, seq)."""
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.models.layers import init_params
+    from repro_torch.train.train_step import TrainHParams
+    from repro_torch.train.trainer import Trainer
+
+    cfg = smoke_config(ARCHS[arch])
+    hp = TrainHParams(total_steps=4, warmup=1)
+    tr = Trainer(cfg, hp, ckpt_dir="unused", device="cpu")
+    tr.hp_global_batch, tr.hp_seq_len = bs
+    batch = next(tr.data_iter(0))
+    params = init_params(tr.specs, torch.Generator().manual_seed(0))
+    return _steps(cfg, hp, params, batch, "bfloat16", mesh)
 
 
 JOBS = {"world8": job_world8, "world4": job_world4}

@@ -16,6 +16,9 @@ in the subprocess's own code, so nothing of the reference changes.
     each leaf's squares per rank, then across ranks), a third finite; in
     float32 three steps within ``F32_TOL`` (the first step's learning rate
     is 0: the third is the first to show an update);
+  * qwen2.5-3b (2 KV heads) and rwkv6-3b (the token-shift LoRA's 5) smoke
+    on 1x4, where the model axis divides neither: every step finite and
+    within ``LOSS_TOL`` of ``mesh=None`` (rwkv6-3b: the first, C29);
   * deepseek-moe-16b smoke on 2x2: the first step's loss within
     ``LOSS_TOL`` of ``mesh=None`` in bfloat16 (S 16), and in float32 at S 80
     (the blockwise attention, heads over the model axis) the same routes and
@@ -305,6 +308,24 @@ def test_reference_restores_the_port_checkpoint_onto_2x2(runs):
     back = runs["back"]
     assert back["n"] > 0 and back["bad"] == []
     assert back["devices"] == 4
+
+
+@pytest.mark.parametrize("arch,bs", _torch_dist_ranks.UNEVEN_CASES)
+def test_1x4_heads_the_model_axis_does_not_divide(runs, arch, bs):
+    """A head or LoRA dim the model axis does not divide (DTensor cannot
+    unflatten an uneven shard; ROADMAP C29): on the 1x4 mesh every step
+    finite, the third moved, and the steps within ``LOSS_TOL`` of
+    ``mesh=None`` -- qwen2.5-3b's three, rwkv6-3b's first.  The smoke
+    rwkv6-3b is ill-conditioned at depth 4: a 1e-7 relative change of its
+    float32 parameters moves its gradients by 4e-4, so its updates part
+    from ``mesh=None`` by the reduction order alone."""
+    res = runs["world4"]["uneven"][f"{arch}/{bs}"]
+    assert len(res["mesh"]) == len(res["plain"]) == _torch_dist_ranks.STEPS
+    assert all(np.isfinite(g["loss"]) for g in res["mesh"])
+    assert res["mesh"][2]["loss"] != res["mesh"][0]["loss"]
+    n = _torch_dist_ranks.STEPS if arch == "qwen2.5-3b" else 1
+    for g, p in zip(res["mesh"][:n], res["plain"][:n]):
+        assert abs(g["loss"] - p["loss"]) < LOSS_TOL, res
 
 
 def test_mesh_of_one_rank_is_bit_equal_to_no_mesh(tmp_path):

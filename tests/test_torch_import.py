@@ -5,7 +5,7 @@ benches included), not after a grid run, not after a fleet run, not after
 serving a request, not after a forward of every family of the model zoo,
 not after a whole ``Trainer.fit`` (the distribution layer and the
 launchers, ``repro_torch.distributed`` and ``repro_torch.launch``,
-included)."""
+the dry run among them, included)."""
 import re
 import subprocess
 import sys
@@ -41,6 +41,8 @@ import repro_torch.train.checkpoint, repro_torch.train.ft
 import repro_torch.data.pipeline, repro_torch.roofline.analysis
 import repro_torch.distributed, repro_torch.distributed.sharding
 import repro_torch.launch, repro_torch.launch.mesh, repro_torch.launch.train
+import repro_torch.launch.specs, repro_torch.launch.dryrun
+import repro_torch.launch.report, benchmarks.roofline_table_torch
 import importlib.util
 for example in ("kvstore_demo_torch", "serve_tiered_kv_torch",
                 "quickstart_torch", "train_100m_torch"):
@@ -149,7 +151,8 @@ def test_run_torch_list_engines_leaves_jax_and_reference_out():
 ENTRY_POINTS = [ROOT / "benchmarks" / f"{m}.py" for m in (
     "common_torch", "run_torch", "paper_figs_torch", "torch_grid_bench",
     "tail_latency_bench_torch", "kernels_bench_torch",
-    "cluster_bench_torch")] + [ROOT / "examples" / f"{m}.py" for m in (
+    "cluster_bench_torch", "roofline_table_torch")] + [
+        ROOT / "examples" / f"{m}.py" for m in (
         "kvstore_demo_torch", "serve_tiered_kv_torch", "quickstart_torch",
         "train_100m_torch")]
 
