@@ -64,7 +64,9 @@ It times the kernels and prints one JSON object per phase.  The last line is
 is no CPU fallback: without a CUDA device the script fails.
 """
 import argparse
+import atexit
 import contextlib
+import functools
 import hashlib
 import importlib.util
 import inspect
@@ -75,9 +77,12 @@ import numbers
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
 from pathlib import Path
 
@@ -134,6 +139,7 @@ from benchmarks import run_torch
 from benchmarks import tail_latency_bench_torch as tbench
 from benchmarks import torch_grid_bench as gbench
 from benchmarks import sched_split_torch as ssplit
+from benchmarks import token_clock_bench_torch as tcb
 from benchmarks.kernels_bench_torch import card_state, cuda_ms
 
 import _torch_kernel_cases as cases
@@ -262,10 +268,13 @@ LEARNS_BS = (16, 48)
 
 OUT_DIR = ROOT / "chiprun_out"
 PHASES = []
+#: the run's start: each phase line carries its seconds since (``t_s``)
+T_START = time.perf_counter()
 
 
 def emit(name, **fields):
-    line = {"phase": name, **fields}
+    line = {"phase": name, **fields,
+            "t_s": time.perf_counter() - T_START}
     PHASES.append(line)
     print(json.dumps(line), flush=True)
 
@@ -289,6 +298,8 @@ def reset_counts():
     pk.paged_decode_attention.launches_by_instance = dict.fromkeys(
         pk.INSTANCES, 0)
     wk.wkv6.launches_by_instance = dict.fromkeys(wk.INSTANCES, 0)
+    tc.token_clock_update.launches_by_instance = dict.fromkeys(
+        tc.INSTANCES, 0)
 
 
 def counts():
@@ -330,6 +341,10 @@ def phase_build():
         _build.load(name)
     regs = [ln.strip() for ln in info["log"].splitlines()
             if "registers" in ln]
+    # the libraries' SASS, disassembled side by side
+    with ThreadPoolExecutor(4) as pool:
+        list(pool.map(sass_text, ("flash_attention", "paged_kv_gather",
+                                  "sched_step", "wkv6")))
     flash = lib_ptxas(info["log"], "flash_attention", _flash_func)
     for key, e in flash.items():
         inst, D = key.split("/D")
@@ -439,19 +454,26 @@ def lib_ptxas(log, lib, func_key):
     return out
 
 
-def sass_count(lib, func_key, opcode):
-    """Count of ``opcode`` instructions per kernel of one built library's
-    SASS (``cuobjdump -sass``), or None where the toolkit has no
-    ``cuobjdump``."""
+@functools.lru_cache(maxsize=None)
+def sass_text(lib):
+    """One built library's SASS (``cuobjdump -sass``), or None where the
+    toolkit has no ``cuobjdump`` or it fails."""
     tool = Path(_build._nvcc()).parent / "cuobjdump"
     if not tool.exists():
         return None
     sass = subprocess.run([str(tool), "-sass", str(_build._lib_path(lib))],
                           capture_output=True, text=True, timeout=300)
-    if sass.returncode != 0:
+    return sass.stdout if sass.returncode == 0 else None
+
+
+def sass_count(lib, func_key, opcode):
+    """Count of ``opcode`` instructions per kernel of one built library's
+    SASS, or None where there is none (:func:`sass_text`)."""
+    text = sass_text(lib)
+    if text is None:
         return None
     counts, key = {}, None
-    for ln in sass.stdout.splitlines():
+    for ln in text.splitlines():
         m = re.search(r"Function : (\w+)", ln)
         if m:
             key = func_key(m.group(1))
@@ -462,36 +484,68 @@ def sass_count(lib, func_key, opcode):
     return counts
 
 
-def phase_token_clock(G, S):
-    """The standalone token-clock kernel against its plain version at the
-    main path's plane shape, then its time, the plain version's, its bound."""
-    rng = np.random.default_rng(101)
-    t = lambda a: torch.from_numpy(a).to(DEV)  # noqa: E731
-    worst = 0.0
-    for inv_r, cost in ((1 / 250e3, 0.0), (1 / 250e3, 1024 / 400e6),
-                        (0.0, 1024 / 400e6), (0.0, 0.0)):
-        submit = t(rng.random(G) * 1e-3)
-        dev_ix = rng.integers(0, S, G)
-        mask_np = (np.arange(S)[None, :] == dev_ix[:, None]) \
-            & (rng.random(G) < 0.6)[:, None]
-        mask = t(mask_np)
-        tok = t(rng.random((G, S)) * 1e-3)
-        bw = t(rng.random((G, S)) * 1e-3)
-        got = tc.token_clock_update(submit, mask, tok, bw, inv_r, cost)
-        want = tc.token_clock_update_ref(submit, mask, tok, bw, inv_r, cost)
-        torch.cuda.synchronize()
-        for a, b in zip(got, want):
-            if not torch.equal(a.view(torch.int64), b.view(torch.int64)):
-                worst = max(worst, float((a - b).abs().max()))
+#: the token-clock kernel's instances held against the plain version:
+#: (S, mask dtype, instance); the generic one also at S 3 and 64 and with
+#: an int32 mask (read as it is: no cast launch)
+TOKEN_CLOCK_CASES = ((1, torch.bool, "s1"), (2, torch.bool, "s2"),
+                     (4, torch.bool, "s4"), (8, torch.bool, "s8"),
+                     (3, torch.bool, "generic"), (64, torch.uint8, "generic"),
+                     (2, torch.int32, "generic"))
+TOKEN_CLOCK_SPACINGS = ((1 / 250e3, 0.0), (1 / 250e3, 1024 / 400e6),
+                        (0.0, 1024 / 400e6), (0.0, 0.0))
+
+
+def start_token_clock_count():
+    """``benchmarks.token_clock_bench_torch --count`` at its ``SHAPE`` (the
+    main path's widest cohort's planes) in a process of its own,
+    started now (it times nothing, so it runs beside the conformance
+    phase); :func:`phase_token_clock` reads it."""
+    return start_module("benchmarks.token_clock_bench_torch", "--count",
+                        timeout=600)
+
+
+def phase_token_clock(G, S, plain_step_wall_s, count_run):
+    """The standalone token-clock kernel: every instance bit-equal to its
+    plain version on planes of ``G`` cells (each clock on and off), one
+    launch a call; then at the main path's plane shape ``(G, S)`` its device
+    time a call (behind a sleep), its host time a call, an empty kernel's
+    (the launch floor) and the plain version's, and its device kernels a
+    call by the profiler, which must be one (``count_run``, started by
+    :func:`start_token_clock_count`), beside its bound and the plain-step
+    path's wall time."""
+    worst, by_case = 0.0, {}
+    for i, (s, dt, want_inst) in enumerate(TOKEN_CLOCK_CASES):
+        for j, (inv_r, cost) in enumerate(TOKEN_CLOCK_SPACINGS):
+            args = (*tcb.planes(G, s, DEV, seed=101 + 7 * i + j,
+                                mask_dtype=dt), inv_r, cost)
+            before = dict(tc.token_clock_update.launches_by_instance)
+            got = tc.token_clock_update(*args)
+            want = tc.token_clock_update_ref(*args)
+            torch.cuda.synchronize()
+            ran = [k for k, v in tc.token_clock_update.launches_by_instance
+                   .items() if v != before[k]]
+            if ran != [want_inst]:
+                fail(f"token_clock_update at S={s} ({dt}) ran {ran}, "
+                     f"expected one launch of {want_inst}")
+            for a, b in zip(got, want):
+                if not torch.equal(a.view(torch.int64), b.view(torch.int64)):
+                    worst = max(worst, float((a - b).abs().max()))
+        by_case[f"S{s}-{str(dt).split('.')[-1]}"] = want_inst
     if worst != 0.0:
         fail(f"token_clock_update disagrees with its plain version "
              f"(max abs err {worst})")
-    args = (submit, mask, tok, bw, 1 / 250e3, 1024 / 400e6)
-    tc.token_clock_update(*args)
-    ms = cuda_ms(lambda: tc.token_clock_update(*args), 200)
-    plain_ms = cuda_ms(lambda: tc.token_clock_update_ref(*args), 200)
-    # bytes: submit + devmask(int32) + tok + bw in; svc + tok + bw out
-    nbytes = 8 * G + 4 * G * S + 2 * 8 * G * S + 8 * G + 2 * 8 * G * S
+    # kernels a call counted in a fresh process (``count_run``): by now this
+    # one's profiler records no kernels, and a cast launch must show
+    out, _, count_s = count_run()
+    m = json.loads(out.strip().splitlines()[-1])
+    if tuple(m["shape"]) != (G, S):
+        fail(f"the token-clock count ran at {m['shape']}, the main path's "
+             f"planes are {(G, S)}")
+    if m["launches_a_call"] != 1 or m["kernels_per_call"] != 1:
+        fail(f"token_clock_update is not one kernel launch a call: {m}")
+    m.update(tcb.timings(G, S))
+    # bytes: submit + devmask (bool) + tok + bw in; svc + tok + bw out
+    nbytes = 8 * G + G * S + 2 * 8 * G * S + 8 * G + 2 * 8 * G * S
     flops = G * (4 + 2 * S)          # two max, two add, S-term mask sums
     b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     b_ops = flops / F64_FLOP_PER_S * 1e3
@@ -499,10 +553,23 @@ def phase_token_clock(G, S):
         name="token_clock.token_clock_update", route="cuda",
         source="src/repro_torch/kernels/csrc/token_clock.cu",
         replaces="src/repro/kernels/token_clock.py:69",
-        max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+        max_abs_err=worst, ms=m["device_us"] * 1e-3,
+        plain_ms=m["plain_device_us"] * 1e-3,
         bound_ms=max(b_bytes, b_ops),
         bound_by="bytes" if b_bytes >= b_ops else "operations",
-        library_ms=None, shape=[G, S], tolerance="bit-equal")
+        library_ms=None, shape=[G, S], tolerance="bit-equal",
+        instance=m["instance"], instances_checked=by_case,
+        host_us=m["host_us"], host_us_windows=m["host_us_windows"],
+        floor_device_us=m["floor_device_us"],
+        floor_host_us=m["floor_host_us"],
+        plain_host_us=m["plain_host_us"],
+        kernels_per_call=m["kernels_per_call"], count_s=count_s,
+        device_over_floor=m["device_us"] / m["floor_device_us"],
+        plain_step_wall_s=plain_step_wall_s,
+        timing="device: CUDA events around one call behind a GPU sleep, "
+               "mean of 200; host: perf_counter over 1000 calls, no sync, "
+               "the least of 5 windows; floor: an empty kernel with the "
+               "same grid")
 
 
 def phase_fused_flag_sets(trace):
@@ -645,7 +712,7 @@ def phase_plain_step_path(art):
     if launches["token_clock_update"] <= 0:
         fail("kernel token_clock_update was not launched on the plain-step "
              "path")
-    for a, b in zip(art_plain.rows, art.rows):
+    for a, b in zip(art_plain.rows, art.rows, strict=True):
         got, want = dict(a.per_thread)[cand], dict(b.per_thread)[cand]
         if a.L_us != b.L_us or got != want:
             fail(f"plain-step path and fused kernel disagree at L={a.L_us}us, "
@@ -656,8 +723,10 @@ def phase_plain_step_path(art):
          cut="threads (8) only: one of the main path's four cohorts",
          wall_s=wall_s, launches=launches,
          steps_per_cell=launches["token_clock_update"],
+         launches_by_instance=dict(
+             tc.token_clock_update.launches_by_instance),
          bit_identical_to_fused_rows=True)
-    return launches
+    return launches, wall_s
 
 
 def phase_agreement(sc, art):
@@ -2985,18 +3054,63 @@ def run_module(module, *argv, timeout=900):
     """``python -m module argv`` in a process of its own: the host loop's
     sweeps fork their workers, which a process holding a CUDA context
     cannot.  ``(stdout, stderr, wall s)``; a non-zero exit fails the run."""
+    return start_module(module, *argv, timeout=timeout)()
+
+
+#: processes started by :func:`start_module`, killed with their workers
+#: if the run ends before they do
+CHILDREN = []
+
+
+def _kill_children():
+    for proc in CHILDREN:
+        if proc.poll() is None:
+            with contextlib.suppress(OSError):
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+
+atexit.register(_kill_children)
+
+
+def start_module(module, *argv, timeout=900):
+    """:func:`run_module`'s process, started now and waited for by a
+    thread: the returned function waits for its end and returns
+    ``(stdout, stderr, wall s)`` (the process's own wall time); a non-zero
+    exit, or a run past ``timeout`` s, fails the run."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
                                if p]))
+    cmd = f"python -m {module} {' '.join(map(str, argv))}"
     t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-m", module, *map(str, argv)],
-                         capture_output=True, text=True, cwd=ROOT, env=env,
-                         timeout=timeout)
-    wall = time.perf_counter() - t0
-    if res.returncode != 0:
-        fail(f"python -m {module} {' '.join(map(str, argv))} exited "
-             f"{res.returncode}:\n{res.stdout[-2000:]}\n{res.stderr[-3000:]}")
-    return res.stdout, res.stderr, wall
+    proc = subprocess.Popen([sys.executable, "-m", module, *map(str, argv)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, cwd=ROOT, env=env,
+                            start_new_session=True)
+    CHILDREN.append(proc)
+    box = {}
+
+    def wait():
+        try:
+            box["out"] = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            box["out"], box["late"] = proc.communicate(), True
+        box["wall"] = time.perf_counter() - t0
+
+    waiter = threading.Thread(target=wait, daemon=True)
+    waiter.start()
+
+    def finish():
+        waiter.join()
+        out, err = box["out"]
+        if box.get("late"):
+            fail(f"{cmd} ran past {timeout} s:\n{err[-3000:]}")
+        if proc.returncode != 0:
+            fail(f"{cmd} exited {proc.returncode}:\n{out[-2000:]}\n"
+                 f"{err[-3000:]}")
+        return out, err, box["wall"]
+    return finish
 
 
 def check_doc(path):
@@ -3206,18 +3320,28 @@ def phase_cli():
     return total
 
 
-def phase_paper_figs():
+def start_paper_figs_loop():
+    """The figures on ``--backend loop`` for :func:`phase_paper_figs`,
+    started now in a process of their own (CPU only, their sweep cells
+    memoized under ``FIG_LOOP_CACHE``) so that they run beside the
+    conformance phase's card work; the returned function waits for them."""
+    shutil.rmtree(FIG_LOOP_CACHE, ignore_errors=True)
+    return start_module(
+        "benchmarks.run_torch", "--backend", "loop", "--device", "cpu",
+        "--sweep-cache", FIG_LOOP_CACHE)
+
+
+def phase_paper_figs(loop_run):
     """Every figure of ``paper_figs_torch.ALL`` and the kernels' rows on the
     card, through ``benchmarks.run_torch``'s default list in this process
     (the wall time of each from its ``bench/*/wall`` row); then every
-    figure again on ``--backend loop`` in a process of its own, its sweep
-    cells memoized.  Every grid cell of the card's fig11, fig13 and fig15
+    figure again on ``--backend loop`` (``loop_run``, started by
+    :func:`start_paper_figs_loop`).  Every grid cell of the card's fig11, fig13 and fig15
     sweeps is held within ``grid_tol(n_ops)`` of its loop cell, save the
     figures on record with the exact count and worst gap of their cells
     past it (``_torch_kernel_cases.FIG_KNOWN_MISSES``, ROADMAP C17); each
     figure's worst cell is shown beside the loop's own spread there over 8
     more seeds.  The host-only figures must print the same rows."""
-    shutil.rmtree(FIG_LOOP_CACHE, ignore_errors=True)
     reset_counts()
     with SweepLog() as log:
         text, wall = run_cli([])
@@ -3240,9 +3364,7 @@ def phase_paper_figs():
         if not math.isfinite(us) or us < 0 or "nan" in derived:
             fail(f"paper_figs row {name}: {us},{derived}")
 
-    loop_out, _, loop_wall = run_module(
-        "benchmarks.run_torch", "--backend", "loop", "--device", "cpu",
-        "--sweep-cache", FIG_LOOP_CACHE)
+    loop_out, _, loop_wall = loop_run()
     rows_l, walls_l = csv_rows(loop_out)
     for name, row in rows_l.items():
         if name.startswith(HOST_ROWS) and rows_t.get(name) != row:
@@ -3526,17 +3648,20 @@ def main():
     wkv_err, wkv_row, wkv_plain_ms = phase_wkv_checks(args.seed)
 
     sc, art, launches = phase_main_path()
-    plain_launches = phase_plain_step_path(art)
+    plain_launches, plain_wall_s = phase_plain_step_path(art)
     phase_agreement(sc, art)
     cluster_launches = phase_cluster_path(art)
     phase_cluster_bench()
+    figs_loop = start_paper_figs_loop()
+    tc_count = start_token_clock_count()
     phase_conformance()
     cohorts, us = plan_main(sc, art)
     floor_ms, split = phase_sched_split(cohorts, us)
     group, err_main = phase_timing(cohorts, us, floor_ms)
     widest = cohorts[-1]
     tok = phase_token_clock(widest.G, widest.state[6].shape[1]
-                            if len(widest.state) > 6 else 1)
+                            if len(widest.state) > 6 else 1, plain_wall_s,
+                            tc_count)
     tok["launches"] = plain_launches["token_clock_update"]
     tok["path"] = "plain_step_path"
     tok["launches_main_path"] = launches["token_clock_update"]
@@ -3696,7 +3821,7 @@ def main():
 
     # the system's own entry points, each phase in a counted window
     cli_launches = phase_cli()
-    figs_launches = phase_paper_figs()
+    figs_launches = phase_paper_figs(figs_loop)
     phase_grid_bench()
     tail_launches = phase_tail_bench()
     example_launches = phase_examples()

@@ -49,7 +49,6 @@ __all__ = [
     "logical_to_pspec",
     "shard",
     "local_call",
-    "head_axis",
     "split_dim",
     "merge_dims",
     "reduce_proj",
@@ -317,7 +316,18 @@ def local_call(fn, in_axes: tuple, out_axes: tuple, *args):
     along a mesh dim that another argument shards gets a partial-sum
     gradient there (each rank saw a part of the other's slices: a weight's
     gradient over the data axes).  The plain call without a context or
-    DTensor arguments."""
+    DTensor arguments.
+
+    A logical axis that some argument's dim does not divide evenly over its
+    mesh dims is split as GSPMD splits it: into ``g`` blocks, ``g`` the
+    greatest common divisor of the axis's extent and its sizes, each block
+    replicated over the remaining ``extent / g`` ranks (40 heads over 16
+    ranks: 5 heads a rank, each block on two ranks; ``g`` 1 leaves the axis
+    whole on every rank).  Such arguments reach the ranks whole and ``fn``
+    sees its block; the outputs are whole again on every rank, summed from
+    the blocks' first replicas (the others add zeros and send no gradient):
+    every output must be floating and carry every axis so cut, or the call
+    raises."""
     lead = next((a for a in args if hasattr(a, "placements")), None)
     if not _MESH_CTX or lead is None:
         return fn(*args)
@@ -327,11 +337,19 @@ def local_call(fn, in_axes: tuple, out_axes: tuple, *args):
     from ..distributed.sharding import placements
 
     mesh, rules = _MESH_CTX[-1]
-    # a logical axis some argument's dim cannot split evenly stays whole
-    # for every argument and output (a batch of one), as ``shard`` leaves it
-    uneven = {n for a, ax in zip(args, in_axes) if ax is not None
-              for d, n in enumerate(ax)
-              if n is not None and a.shape[d] % _rule_extent(n)}
+    sizes: dict[str, set] = {}
+    for a, ax in zip(args, in_axes):
+        for d, n in enumerate(ax or ()):
+            if n is not None:
+                sizes.setdefault(n, set()).add(a.shape[d])
+    # the logical axes some argument's dim cannot split evenly stay whole
+    # for every argument and output, as ``shard`` leaves them; those of
+    # them with a common divisor are then cut into ``blocks`` in ``fn``
+    uneven = {n for n, s in sizes.items()
+              if any(x % _rule_extent(n) for x in s)}
+    blocks = {n: g for n in uneven
+              if (g := math.gcd(_rule_extent(n), *sizes[n])) > 1}
+    cut = {n: _block_of(mesh, rules, n, g) for n, g in blocks.items()}
     pl = lambda axes: placements(logical_to_pspec(
         tuple(None if n in uneven else n for n in axes), rules), mesh)
     whole = lambda a: (a if hasattr(a, "placements") else DTensor.from_local(
@@ -340,15 +358,108 @@ def local_call(fn, in_axes: tuple, out_axes: tuple, *args):
         None if n in uneven else n for n in ax))
         for a, ax in zip(args, in_axes))
     ins = tuple(None if ax is None else pl(ax) for ax in in_axes)
-    split = {m for p in ins if p is not None
-             for m, q in enumerate(p) if q.is_shard()}
+    cut_dims = {m for n in blocks for m in _mesh_dims(mesh, rules, n)}
+    split = cut_dims | {m for p in ins if p is not None
+                        for m, q in enumerate(p) if q.is_shard()}
     grads = tuple(None if p is None else tuple(
         Partial() if q == Replicate() and m in split else q
         for m, q in enumerate(p)) for p in ins)
-    return local_map(
-        fn, out_placements=tuple(pl(ax) for ax in out_axes),
-        in_placements=ins, in_grad_placements=grads,
-        device_mesh=mesh)(*args)
+    outs = tuple(pl(ax) for ax in out_axes)
+    if not blocks:
+        return local_map(fn, out_placements=outs, in_placements=ins,
+                         in_grad_placements=grads, device_mesh=mesh)(*args)
+
+    # each output is whole again as the sum of its blocks: one without a
+    # cut axis would be added once a block
+    for ax in out_axes:
+        if set(cut) - set(ax):
+            raise ValueError(
+                f"local_call: an output on axes {ax} lacks the axes "
+                f"{sorted(set(cut) - set(ax))} cut into blocks")
+    first = all(f for _, _, f in cut.values())
+
+    def blockwise(*local):
+        res = fn(*(a if ax is None else _take_blocks(a, ax, cut)
+                   for a, ax in zip(local, in_axes)))
+        one = not isinstance(res, tuple)
+        for r in (res,) if one else res:
+            if not r.is_floating_point():
+                raise TypeError(
+                    f"local_call: a {r.dtype} output of blocks of "
+                    f"{sorted(cut)}; only floating outputs are summed")
+        res = tuple(_put_blocks(r, ax, cut, first)
+                    for r, ax in zip((res,) if one else res, out_axes))
+        return res[0] if one else res
+
+    summed = tuple(tuple(Partial() if m in cut_dims and q == Replicate()
+                         else q for m, q in enumerate(p)) for p in outs)
+    res = local_map(blockwise, out_placements=summed, in_placements=ins,
+                    in_grad_placements=grads, device_mesh=mesh)(*args)
+    one = not isinstance(res, tuple)
+    res = tuple(r.redistribute(mesh, p)
+                for r, p in zip((res,) if one else res, outs))
+    return res[0] if one else res
+
+
+def _mesh_dims(mesh, rules: dict, name: str) -> list[int]:
+    """The mesh dims (major to minor) logical axis ``name`` maps to."""
+    from ..distributed.sharding import axis_names
+
+    entry = rules.get(name)
+    axes = () if entry is None else (
+        (entry,) if isinstance(entry, str) else tuple(entry))
+    return [axis_names(mesh).index(a) for a in axes]
+
+
+def _block_of(mesh, rules: dict, name: str, g: int) -> tuple[int, int, bool]:
+    """``(g, block, first)``: this rank's block of logical axis ``name``
+    cut into ``g`` blocks over its mesh dims, and whether the rank is the
+    block's first replica (rank ``c`` of the axis's ``extent`` holds block
+    ``c % g``; ranks ``0 .. g-1`` are the first replicas)."""
+    coord = mesh.get_coordinate()
+    c = 0
+    for m in _mesh_dims(mesh, rules, name):
+        c = c * mesh.size(m) + coord[m]
+    return g, c % g, c < g
+
+
+def _take_blocks(a: torch.Tensor, axes: tuple, cut: dict) -> torch.Tensor:
+    """``a``'s block along each of its dims whose logical axis is cut."""
+    for d, n in enumerate(axes):
+        if n in cut:
+            g, b, _ = cut[n]
+            w = a.shape[d] // g
+            a = a.narrow(d, b * w, w)
+    return a
+
+
+def _put_blocks(r: torch.Tensor, axes: tuple, cut: dict,
+                first: bool) -> torch.Tensor:
+    """A block output ``r`` at its place in a zero tensor of the whole
+    size along each cut dim; zeros (and a zero gradient) on a rank that is
+    not the first replica of its blocks, so the ranks' sum is the whole."""
+    r = _FirstReplica.apply(r, first)
+    for d, n in enumerate(axes):
+        if n in cut:
+            g, b, _ = cut[n]
+            w = r.shape[d]
+            pad = [0, 0] * (r.dim() - 1 - d) + [b * w, (g - 1 - b) * w]
+            r = F.pad(r, pad)
+    return r
+
+
+class _FirstReplica(torch.autograd.Function):
+    """The identity on a block's first replica; zeros, value and gradient,
+    on the others."""
+
+    @staticmethod
+    def forward(ctx, x, first):
+        ctx.first = first
+        return x.view_as(x) if first else torch.zeros_like(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.first else torch.zeros_like(g)), None
 
 
 def param_shardings(specs, mesh, rules: dict[str, Any]):
@@ -485,18 +596,12 @@ def attention(
         qg = split_dim(q, 2, (Hkv, rep)).float() * scale
         return _attn_dense(qg, k, v, causal, sliding_window).to(q.dtype)
     win = 0 if sliding_window is None else int(sliding_window)
-    # on a mesh: each rank's (batch, head) block alone, the KV heads split
-    # as the query heads when the model axes divide them
-    ax = ("batch", None, head_axis(Hkv), None)
+    # on a mesh: each rank's (batch, head) block alone; heads the model
+    # axes do not divide are split as GSPMD splits them (``local_call``),
+    # each block of query heads beside its KV heads
+    ax = ("batch", None, "heads", None)
     return local_call(_FlashFn.apply, (ax, ax, ax, None, None, None), (ax,),
                       q, k, v, bool(causal), win, int(block_kv))
-
-
-def head_axis(n_heads: int) -> str | None:
-    """The logical axis of a heads dim of ``n_heads`` for :func:`local_call`:
-    ``"heads"`` where the active mesh's heads rule divides it, else ``None``
-    (whole on every rank)."""
-    return "heads" if n_heads % _rule_extent("heads") == 0 else None
 
 
 def _rule_extent(name: str) -> int:

@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.sim.replay_torch import resolve_device
-from .layers import DTYPE, ParamSpec, rms_norm, shard, split_dim
+from .layers import DTYPE, ParamSpec, local_call, rms_norm, shard, split_dim
 
 __all__ = [
     "block_specs",
@@ -57,12 +57,19 @@ def block_specs(cfg, n_layers: int) -> dict:
 
 
 def _split_proj(x, lw, cfg):
+    """z, xBC, dt: the in-projection's three blocks, each split over the
+    model axis on its own (the mesh splits ``in_proj``'s output as one dim;
+    GSPMD reshards each slice to its consumers' layout, where DTensor would
+    leave the slices whole on every rank)."""
     d_inner, H, G, N, conv_dim, _ = dims(cfg)
-    zxbcdt = x @ lw["in_proj"]
+    # split over the model axis, its gradient too: the slices' gradients
+    # meet here whole
+    zxbcdt = shard(x @ lw["in_proj"], "batch", None, "mlp")
     z = zxbcdt[..., :d_inner]
     xBC = zxbcdt[..., d_inner: d_inner + conv_dim]
     dt = zxbcdt[..., d_inner + conv_dim:]
-    return z, xBC, dt
+    return (shard(z, "batch", None, "mlp"), shard(xBC, "batch", None, "mlp"),
+            shard(dt, "batch", None, "heads"))
 
 
 def _conv(xBC, lw, cache=None):
@@ -81,12 +88,14 @@ def _conv(xBC, lw, cache=None):
 
 def _ssm_inputs(xBC, dt, lw, cfg):
     d_inner, H, G, N, _, _ = dims(cfg)
-    xs = split_dim(xBC[..., :d_inner], 2, (H, cfg.ssm_head_dim))
+    xs = shard(split_dim(xBC[..., :d_inner], 2, (H, cfg.ssm_head_dim)),
+               "batch", None, "heads", None)
     Bm = split_dim(xBC[..., d_inner: d_inner + G * N], 2, (G, N))
     Cm = split_dim(xBC[..., d_inner + G * N:], 2, (G, N))
     rep = H // G
-    Bh = torch.repeat_interleave(Bm, rep, dim=2)            # (B,S,H,N)
-    Ch = torch.repeat_interleave(Cm, rep, dim=2)
+    # every head of a rank's block reads its group's B and C
+    Bh, Ch = (shard(torch.repeat_interleave(t, rep, dim=2), "batch", None,
+                    "heads", None) for t in (Bm, Cm))       # (B,S,H,N)
     dt = F.softplus(dt.float() + lw["dt_bias"])             # (B,S,H)
     la = -torch.exp(lw["A_log"]) * dt                       # log a_t <= 0
     xbar = xs.float() * dt[..., None]                       # dt-scaled input
@@ -150,8 +159,13 @@ def block_forward(x, lw, cfg, state0=None, conv_cache=None):
     z, xBC, dt = _split_proj(h, lw, cfg)
     xBC, new_conv = _conv(xBC, lw, conv_cache)
     xs, xbar, Bh, Ch, la = _ssm_inputs(xBC, dt, lw, cfg)
-    y, final = ssd_chunked(xbar, Bh, Ch, la, cfg.ssm_chunk, state0,
-                           unroll=cfg.unroll_inner)
+    # on a mesh each rank runs its own (batch, head) block: the chunk loop's
+    # ops are shard-local, as in the reference's layout
+    ax, st = ("batch", None, "heads", None), ("batch", "heads", None, None)
+    y, final = local_call(
+        lambda xb, b, c, la, s0: ssd_chunked(xb, b, c, la, cfg.ssm_chunk, s0),
+        (ax, ax, ax, ax[:3], None if state0 is None else st), (ax, st),
+        xbar, Bh, Ch, la, state0)
     y = y + lw["D"][:, None] * xs.float()
     return _gate_out(y, z, x, lw, d_inner), (final, new_conv)
 

@@ -22,8 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from ..core.sim.replay_torch import resolve_device
-from .layers import (DTYPE, ParamSpec, embed, head_axis, layer_norm,
-                     layer_views, local_call, merge_dims, remat_call, shard,
+from .layers import (DTYPE, ParamSpec, embed, layer_norm, layer_views,
+                     local_call, merge_dims, reduce_proj, remat_call, shard,
                      split_dim, take_layer)
 
 __all__ = ["param_specs", "forward", "decode_step", "init_state",
@@ -86,7 +86,9 @@ def _time_mix_inputs(x, x_prev, lw):
     lo = split_dim(torch.tanh(xxx @ lw["maa_w1"]), 2, (5, TM_LORA))
     mix = torch.einsum("bsfr,frd->bsfd", lo, lw["maa_w2"]) + lw["maa_wkvrg"]
     xs = x[:, :, None] + sx[:, :, None] * mix              # (B,S,5,d)
-    xw, xk, xv, xr, xg = xs.unbind(2)
+    # the five mixes are whole on every rank before they are taken apart
+    # (DTensor may shard the 5 on a mesh, and cannot unbind a sharded dim)
+    xw, xk, xv, xr, xg = shard(xs, "batch", None, None, "embed").unbind(2)
     dec = lw["decay_base"] + torch.tanh(xw @ lw["decay_w1"]) @ lw["decay_w2"]
     log_w = -torch.exp(dec.float())                        # log w_t <= 0
     return xk, xv, xr, xg, log_w
@@ -162,8 +164,9 @@ def _time_mix(x, x_prev, lw, cfg, state0=None, decode=False):
         y, final = out_t[:, None], new_state
     else:
         # on a mesh each rank runs its own (batch, head) block: the chunk
-        # loop's ops are shard-local, as in the reference's layout
-        ax, heads = ("batch", None, head_axis(H), None), head_axis(H)
+        # loop's ops are shard-local, as in the reference's layout (heads
+        # the mesh does not divide are split as GSPMD splits them)
+        ax, heads = ("batch", None, "heads", None), "heads"
         y, final = local_call(
             lambda r, k, v, lw, u, s0: wkv_chunked(r, k, v, lw, u,
                                                    cfg.ssm_chunk, s0),
@@ -178,7 +181,10 @@ def _time_mix(x, x_prev, lw, cfg, state0=None, decode=False):
     yh = (yh - mu) * torch.rsqrt(var + 64e-5)
     y = merge_dims(yh, 2).to(DTYPE) * lw["gn"] + lw["gn_b"]
     y = y * F.silu(g.float()).to(DTYPE)
-    return y @ lw["wo"], final
+    # on a mesh the heads' partial sums are reduced here, not carried into
+    # the residual (a partial residual would run the channel mix on whole
+    # weights)
+    return reduce_proj(y, lw["wo"], "batch", "seq_res", "embed"), final
 
 
 def _channel_mix(x, x_prev, lw):
@@ -187,7 +193,7 @@ def _channel_mix(x, x_prev, lw):
     xr = x + sx * lw["cm_maa_r"]
     kk = torch.square(F.relu((xk @ lw["cm_wk"]).float())).to(DTYPE)
     kk = shard(kk, "batch", "seq", "mlp")
-    vv = kk @ lw["cm_wv"]
+    vv = reduce_proj(kk, lw["cm_wv"], "batch", "seq_res", "embed")
     rr = torch.sigmoid((xr @ lw["cm_wr"]).float())
     return rr.to(DTYPE) * vv
 

@@ -56,7 +56,7 @@ def spawn(job: str, world: int, out: str, timeout: float, **kw) -> None:
 #: (ROADMAP C28)
 MOE_BS = {"bfloat16": (4, 16), "float32": (4, 80)}
 #: the model modules whose ``DTYPE`` a float32 run sets
-F32_MODULES = ("layers", "transformer", "moe")
+F32_MODULES = ("layers", "transformer", "moe", "rwkv6", "mamba2", "hybrid")
 #: steps of a multi-rank run: the first step's learning rate is 0, so the
 #: third is the first to show an update made from sharded gradients
 STEPS = 3
@@ -242,6 +242,14 @@ def job_world4(rank, out):
         if rank == 0:
             res["uneven"][f"{arch}/{bs}"] = {
                 "mesh": got, "plain": uneven_steps(arch, bs)}
+    res["split"] = {}
+    for arch, bs, over in SPLIT_CASES:
+        got = uneven_steps(arch, bs, mesh, over, "float32")
+        if rank == 0:
+            res["split"][arch] = {"mesh": got, "plain": uneven_steps(
+                arch, bs, None, over, "float32")}
+        for m, dt in zip(mods, dtypes):
+            m.DTYPE = dt
     if rank == 0:
         torch.save(res, os.path.join(out, "world4.pt"))
 
@@ -251,23 +259,36 @@ def job_world4(rank, out):
 #: attention), and rwkv6-3b's token-shift LoRA reshape (B, S, 5, 32) meets
 #: a flat 160 over 4 ranks
 UNEVEN_CASES = (("qwen2.5-3b", (8, 64)), ("rwkv6-3b", (8, 64)))
+#: the 1x4 cases whose recurrence runs in blocks of heads on each rank, in
+#: float32: (arch, (batch, seq), config overrides); rwkv6-3b at 6 heads of
+#: 32 (a model axis of 4 splits them into 2 blocks of 3, each on two ranks)
+#: and two layers; zamba2-7b's two Mamba-2 layers (8 heads, 2 a rank, its
+#: in_proj output split 4 ways); qwen2.5-3b's blockwise attention (S 128
+#: over blocks of 64) at 6 query heads and 2 KV heads, two layers: 2
+#: blocks of 3 query heads beside their KV head, each on two ranks
+SPLIT_CASES = (("rwkv6-3b", (8, 64), {"d_model": 192, "n_layers": 2}),
+               ("zamba2-7b", (8, 64), {"n_layers": 2}),
+               ("qwen2.5-3b", (8, 128), {"n_heads": 6, "n_kv_heads": 2,
+                                         "n_layers": 2}))
 
 
-def uneven_steps(arch: str, bs: tuple, mesh=None):
-    """The smoke ``arch``'s steps from the port's seed-0 parameters on the
-    seed-0 synthetic batch of ``bs`` (batch, seq)."""
+def uneven_steps(arch: str, bs: tuple, mesh=None, over=None,
+                 dtype="bfloat16"):
+    """The smoke ``arch``'s steps (its config with ``over`` replaced) from
+    the port's seed-0 parameters on the seed-0 synthetic batch of ``bs``
+    (batch, seq), in ``dtype``."""
     from repro_torch.configs import ARCHS, smoke_config
     from repro_torch.models.layers import init_params
     from repro_torch.train.train_step import TrainHParams
     from repro_torch.train.trainer import Trainer
 
-    cfg = smoke_config(ARCHS[arch])
+    cfg = smoke_config(ARCHS[arch]).replace(**(over or {}))
     hp = TrainHParams(total_steps=4, warmup=1)
     tr = Trainer(cfg, hp, ckpt_dir="unused", device="cpu")
     tr.hp_global_batch, tr.hp_seq_len = bs
     batch = next(tr.data_iter(0))
     params = init_params(tr.specs, torch.Generator().manual_seed(0))
-    return _steps(cfg, hp, params, batch, "bfloat16", mesh)
+    return _steps(cfg, hp, params, batch, dtype, mesh)
 
 
 JOBS = {"world8": job_world8, "world4": job_world4}

@@ -146,6 +146,55 @@ def test_token_clock_kernel_matches_plain_version(cuda):
     assert tc.token_clock_update.launches == before + 4
 
 
+@pytest.mark.parametrize("S,mask_dtype,offset,want", [
+    (1, torch.bool, 0, "s1"), (2, torch.bool, 0, "s2"),
+    (4, torch.bool, 0, "s4"), (8, torch.bool, 0, "s8"),
+    (3, torch.bool, 0, "generic"), (64, torch.bool, 0, "generic"),
+    (2, torch.int32, 0, "generic"), (2, torch.int64, 0, "generic"),
+    (2, torch.bool, 1, "generic")],
+    ids=["s1", "s2", "s4", "s8", "S3", "S64", "int32", "int64", "unaligned"])
+def test_token_clock_instances_bit_equal_one_launch_a_call(
+        cuda, S, mask_dtype, offset, want):
+    """Each instance of the kernel bit-equal to the plain version, each
+    clock on and off; one kernel a call (no cast launch: the mask is read
+    as given), counted by ``torch.profiler``.  ``offset`` starts the clock
+    planes one double into their buffers (rows not 16-byte aligned)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(S)
+    G = 300
+
+    def clocks():
+        buf = torch.from_numpy(rng.random(G * S + offset)).to(cuda)
+        return buf[offset:].view(G, S)
+
+    submit = torch.from_numpy(rng.random(G)).to(cuda)
+    mask = torch.from_numpy(
+        (np.arange(S)[None, :] == rng.integers(0, S, G)[:, None])
+        & (rng.random(G) < 0.7)[:, None]).to(cuda).to(mask_dtype)
+    tok, bw = clocks(), clocks()
+    assert tc.instance(mask, tok, bw) == want
+    for inv_r, cost in ((0.5, 0.0), (0.5, 0.25), (0.0, 0.25), (0.0, 0.0)):
+        before = dict(tc.token_clock_update.launches_by_instance)
+        got = tc.token_clock_update(submit, mask, tok, bw, inv_r, cost)
+        ref = tc.token_clock_update_ref(submit, mask, tok, bw, inv_r, cost)
+        after = tc.token_clock_update.launches_by_instance
+        assert {k: after[k] - before[k] for k in after
+                if after[k] != before[k]} == {want: 1}
+        for a, b in zip(got, ref):
+            assert torch.equal(a.view(torch.int64), b.view(torch.int64))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            tc.token_clock_update(submit, mask, tok, bw, 0.5, 0.25)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 5 and all("token_clock" in k for k in kernels), \
+        kernels
+
+
 def test_grid_kernel_path_bit_identical_to_plain_path(cuda, small_trace):
     """The whole grid: fused kernel vs plain step on the card, same draws."""
     cfg = SimConfig(P=12, seed=7, n_ssd=2, R_io=250e3, L_switch=0.3 * US)

@@ -19,6 +19,12 @@ in the subprocess's own code, so nothing of the reference changes.
   * qwen2.5-3b (2 KV heads) and rwkv6-3b (the token-shift LoRA's 5) smoke
     on 1x4, where the model axis divides neither: every step finite and
     within ``LOSS_TOL`` of ``mesh=None`` (rwkv6-3b: the first, C29);
+  * rwkv6-3b at 6 heads, zamba2-7b, and qwen2.5-3b at 6 query heads and
+    2 KV heads (its blockwise attention) smoke on 1x4 in float32, the
+    recurrence or the attention in blocks of heads (4 ranks, 2 blocks of
+    rwkv6's and qwen's heads, C30):
+    three steps within ``LOSS_TOL`` of ``mesh=None`` and their gradient
+    norms within ``SPLIT_GRAD_TOL``;
   * deepseek-moe-16b smoke on 2x2: the first step's loss within
     ``LOSS_TOL`` of ``mesh=None`` in bfloat16 (S 16), and in float32 at S 80
     (the blockwise attention, heads over the model axis) the same routes and
@@ -51,6 +57,9 @@ from _torch_dist_ranks import spawn
 
 ROOT = Path(__file__).resolve().parents[1]
 LOSS_TOL = 2e-3         # tests/test_torch_train_step.py
+#: a float32 gradient norm on the 1x4 mesh against one rank, relative: the
+#: reduction order alone (4e-5 at rwkv6's third step, counted on a CPU)
+SPLIT_GRAD_TOL = 1e-3
 #: float32 sharded vs unsharded: the reduction order only (measured: 1.4e-6
 #: over four steps of the 4x2 case)
 F32_TOL = 1e-5
@@ -326,6 +335,29 @@ def test_1x4_heads_the_model_axis_does_not_divide(runs, arch, bs):
     n = _torch_dist_ranks.STEPS if arch == "qwen2.5-3b" else 1
     for g, p in zip(res["mesh"][:n], res["plain"][:n]):
         assert abs(g["loss"] - p["loss"]) < LOSS_TOL, res
+
+
+@pytest.mark.parametrize("arch", [c[0] for c in _torch_dist_ranks.SPLIT_CASES])
+def test_1x4_recurrence_in_blocks_of_heads(runs, arch):
+    """The recurrence, or the blockwise attention, run in blocks of heads
+    on each rank (``local_call``'s GSPMD split: rwkv6's 6 heads in 2 blocks
+    over 4 ranks, each output summed from its block's first replica;
+    zamba2's 8 in 4; qwen's 6 query heads in 2 blocks of 3, each beside its
+    KV head), in float32:
+    every step within ``LOSS_TOL`` of ``mesh=None``, and its gradient norm
+    within ``SPLIT_GRAD_TOL`` relatively (a block counted twice, or not at
+    all, moves it by that block's share).  In bfloat16 the smoke rwkv6-3b
+    at 6 heads parts from ``mesh=None`` by 7 % in its first gradient norm
+    with its heads whole on every rank or split, bit for bit the same: the
+    rounding of the rest of the sharded step, not the split."""
+    res = runs["world4"]["split"][arch]
+    assert len(res["mesh"]) == len(res["plain"]) == _torch_dist_ranks.STEPS
+    for g, p in zip(res["mesh"], res["plain"]):
+        assert np.isfinite(g["loss"]) and np.isfinite(g["grad_norm"])
+        assert abs(g["loss"] - p["loss"]) < LOSS_TOL, res
+        assert abs(g["grad_norm"] - p["grad_norm"]) < SPLIT_GRAD_TOL * abs(
+            p["grad_norm"]), res
+    assert res["mesh"][2]["loss"] != res["mesh"][0]["loss"]
 
 
 def test_mesh_of_one_rank_is_bit_equal_to_no_mesh(tmp_path):

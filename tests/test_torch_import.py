@@ -34,6 +34,7 @@ import benchmarks.run_torch
 import benchmarks.paper_figs_torch
 import benchmarks.torch_grid_bench
 import benchmarks.tail_latency_bench_torch
+import benchmarks.token_clock_bench_torch
 import repro_torch.optim.adamw, repro_torch.optim.schedule
 import repro_torch.optim.grad_compress
 import repro_torch.train.train_step, repro_torch.train.trainer
@@ -151,7 +152,8 @@ def test_run_torch_list_engines_leaves_jax_and_reference_out():
 ENTRY_POINTS = [ROOT / "benchmarks" / f"{m}.py" for m in (
     "common_torch", "run_torch", "paper_figs_torch", "torch_grid_bench",
     "tail_latency_bench_torch", "kernels_bench_torch",
-    "cluster_bench_torch", "roofline_table_torch")] + [
+    "cluster_bench_torch", "roofline_table_torch",
+    "token_clock_bench_torch")] + [
         ROOT / "examples" / f"{m}.py" for m in (
         "kvstore_demo_torch", "serve_tiered_kv_torch", "quickstart_torch",
         "train_100m_torch")]

@@ -2,9 +2,12 @@
 
 The plain PyTorch version (``repro_torch.kernels.token_clock``) is held
 bit-equal to ``repro.kernels.token_clock.token_clock_update_ref`` and to the
-reference's Pallas kernel run in interpret mode, on random ``(G, S)`` planes.
-Contract: bit-exact (same operations in the same order; a one-hot masked sum
-has one non-zero term, so its order cannot matter).  On the CPU the port's
+reference's Pallas kernel run in interpret mode, on random ``(G, S)`` planes:
+at S = 1, 2, 3, 8 and 64 (the CUDA kernel's specialised widths and its
+generic path), with bool and integer masks (any non-zero entry selects its
+device), empty rows and each clock disabled.  Contract: bit-exact (same
+operations in the same order; a one-hot masked sum has one non-zero term, so
+its order cannot matter).  On the CPU the port's
 ``token_clock_update`` wrapper takes the plain version; the CUDA kernel is
 held against it on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
@@ -65,6 +68,70 @@ def test_plain_version_bit_equal_to_interpreted_pallas_kernel(inv_r, cost_bw):
         want = [np.asarray(w) for w in want]
     for a, b in zip(got, want):
         assert bits_equal(a.numpy(), b)
+
+
+MASK_DTYPES = ("bool", "uint8", "int32", "int64")
+
+
+def _reference(submit, mask, tok, bw, inv_r, cost_bw):
+    with enable_x64():
+        want = ref_tc.token_clock_update_ref(
+            jnp.asarray(submit), jnp.asarray(mask != 0), jnp.asarray(tok),
+            jnp.asarray(bw), inv_r, cost_bw)
+        return [np.asarray(w) for w in want]
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 8, 64])
+@pytest.mark.parametrize("mask_dtype", MASK_DTYPES)
+@pytest.mark.parametrize("inv_r,cost_bw", SPACINGS)
+def test_plain_version_bit_equal_to_reference_at_every_width(
+        S, mask_dtype, inv_r, cost_bw):
+    """The widths and mask types the CUDA kernel's instances take; every
+    fifth row empty besides the random ones; integer masks hold 3, not 1,
+    where a device is selected."""
+    G = 40
+    submit, mask, tok, bw = _planes(S * 13 + len(mask_dtype), G, S)
+    mask[::5] = False
+    mask = mask.astype(mask_dtype) * (1 if mask_dtype == "bool" else 3)
+    t = torch.from_numpy
+    want = _reference(submit, mask, tok, bw, inv_r, cost_bw)
+    for fn in (tc.token_clock_update_ref, tc.token_clock_update):
+        got = fn(t(submit), t(mask), t(tok), t(bw), inv_r, cost_bw)
+        for a, b in zip(got, want):
+            assert a.dtype == torch.float64 and a.shape == b.shape
+            assert bits_equal(a.numpy(), b)
+    assert tc.token_clock_update.launches == 0      # CPU: no kernel launch
+
+
+@pytest.mark.parametrize("S", [1, 2, 64])
+def test_plain_version_with_no_io_this_step(S):
+    """An all-empty mask: every service time is its submit time and every
+    clock passes through."""
+    submit, mask, tok, bw = _planes(S, 16, S)
+    mask[:] = False
+    t = torch.from_numpy
+    got = tc.token_clock_update_ref(t(submit), t(mask), t(tok), t(bw),
+                                    1 / 250e3, 1024 / 400e6)
+    for a, b in zip(got, _reference(submit, mask, tok, bw, 1 / 250e3,
+                                    1024 / 400e6)):
+        assert bits_equal(a.numpy(), b)
+    assert bits_equal(got[0].numpy(), submit)
+    assert bits_equal(got[1].numpy(), tok) and bits_equal(got[2].numpy(), bw)
+
+
+def test_token_clock_bench_needs_a_card():
+    """The kernel's bench measures on the card and has no CPU fallback;
+    its planes are the kernel's inputs."""
+    from benchmarks import token_clock_bench_torch as tcb
+
+    submit, mask, tok, bw = tcb.planes(7, 2, "cpu")
+    assert (submit.shape, mask.shape, tok.shape, bw.shape) == (
+        (7,), (7, 2), (7, 2), (7, 2))
+    assert mask.dtype == torch.bool and int(mask.sum(1).max()) <= 1
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tcb.main([])
 
 
 def test_unit_grant_semantics():
