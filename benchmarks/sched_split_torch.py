@@ -455,7 +455,9 @@ def grid(dev=None) -> dict:
         prof_wall_s = time.perf_counter() - t0
     kern_ms = busy_ms = 0.0
     for ev in p.key_averages():
-        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+        # a user annotation's device range repeats its kernels' time
+        if (getattr(ev, "device_type", None) != DeviceType.CUDA
+                or getattr(ev, "is_user_annotation", False)):
             continue
         ms = getattr(ev, "self_device_time_total", 0.0) / 1e3
         busy_ms += ms

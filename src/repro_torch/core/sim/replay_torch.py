@@ -65,6 +65,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ... import obs
 from ...kernels import sched_step as sk
 from ..trace_ir import CPU, CompiledTrace
 from .arrivals import HIST_BINS, LatencySummary, hist_bin_value
@@ -572,12 +573,15 @@ def plan_grid(
     if min(candidates) < 1:
         raise ValueError(f"thread candidates must be >= 1: {candidates}")
 
-    source = trace if isinstance(trace, CompiledTrace) else trace.to_trace()
-    ta = (trace.to(dev) if isinstance(trace, TraceArrays)
-          else lower_trace(trace, device=dev))
-    if int(ta.op_ends[-1]) >= (1 << sk.SPAN_SHIFT):
+    with obs.span("grid.lower"):
+        source = (trace if isinstance(trace, CompiledTrace)
+                  else trace.to_trace())
+        ta = (trace.to(dev) if isinstance(trace, TraceArrays)
+              else lower_trace(trace, device=dev))
+        n_subops = int(ta.op_ends[-1])
+    if n_subops >= (1 << sk.SPAN_SHIFT):
         raise ValueError(
-            f"trace has {int(ta.op_ends[-1])} suboperations; the fused "
+            f"trace has {n_subops} suboperations; the fused "
             f"step's span packing supports < 2**{sk.SPAN_SHIFT}")
     if cfg.n_cores * max(candidates) > (1 << sk.TAG_BITS):
         raise ValueError(
@@ -638,38 +642,41 @@ def plan_grid(
 
     lat_np = np.asarray(latencies, dtype=np.float64)
     n_lat = len(latencies)
+    with obs.span("grid.cohorts"):
+        layout = _cohorts(source, candidates, n_ops, warmup_ops, cfg.n_cores,
+                          bucket_threads)
     out = []
-    for cols, T_max, steps in _cohorts(source, candidates, n_ops, warmup_ops,
-                                       cfg.n_cores, bucket_threads):
-        cand_b = [candidates[j] for j in cols]
-        nc = len(cand_b)
-        L_mem_g = torch.from_numpy(np.repeat(lat_np, nc)).to(dev)
-        nthr_np = np.tile(np.asarray(cand_b, dtype=np.int32), n_lat)
-        warm_np = (np.full_like(nthr_np, warmup_ops)
-                   if warmup_ops is not None
-                   else 2 * nthr_np * cfg.n_cores).astype(np.int32)
-        nthr_g = torch.from_numpy(nthr_np).to(dev)
-        warm_g = torch.from_numpy(warm_np).to(dev)
-        # Each cell's RNG stream is keyed by its (L_mem, n_threads) VALUES,
-        # so a cell's result never depends on which other cells -- or
-        # cohorts -- share the call (cache purity).
-        stream_ids = np.array(
-            [zlib.crc32(struct.pack("<dq", L, n))
-             for L in lat_np for n in cand_b],
-            dtype=np.uint32,
-        )
-        u_cursor, u_thread = draws.init(stream_ids, cfg.n_cores * T_max)
-        state = init_state(
-            ta, L_mem_g, nthr_g, warm_g, arr,
-            _as_f64(u_cursor, dev), _as_f64(u_thread, dev),
-            T_max=T_max, P=cfg.P, n_ssd=cfg.n_ssd, n_cores=cfg.n_cores,
-            rho=dyn[2], L_dram=dyn[3], has_rho=flags["has_rho"],
-            has_io_clock=has_io_clock, has_arr=has_arr, has_lat=has_lat)
-        out.append(Cohort(
-            cols=cols, T_max=T_max, steps=steps, G=n_lat * nc, n_u=n_u,
-            stream_ids=stream_ids, substep=sub, state=state, kd=kd, se=se,
-            arr=arr, n_trace=ta.n_ops, L_mem_g=L_mem_g, nthr_g=nthr_g,
-            warm_g=warm_g, n_ops=int(n_ops), dyn=dyn, draws=draws))
+    for cols, T_max, steps in layout:
+        with obs.span("grid.init"):
+            cand_b = [candidates[j] for j in cols]
+            nc = len(cand_b)
+            L_mem_g = torch.from_numpy(np.repeat(lat_np, nc)).to(dev)
+            nthr_np = np.tile(np.asarray(cand_b, dtype=np.int32), n_lat)
+            warm_np = (np.full_like(nthr_np, warmup_ops)
+                       if warmup_ops is not None
+                       else 2 * nthr_np * cfg.n_cores).astype(np.int32)
+            nthr_g = torch.from_numpy(nthr_np).to(dev)
+            warm_g = torch.from_numpy(warm_np).to(dev)
+            # Each cell's RNG stream is keyed by its (L_mem, n_threads) VALUES,
+            # so a cell's result never depends on which other cells -- or
+            # cohorts -- share the call (cache purity).
+            stream_ids = np.array(
+                [zlib.crc32(struct.pack("<dq", L, n))
+                 for L in lat_np for n in cand_b],
+                dtype=np.uint32,
+            )
+            u_cursor, u_thread = draws.init(stream_ids, cfg.n_cores * T_max)
+            state = init_state(
+                ta, L_mem_g, nthr_g, warm_g, arr,
+                _as_f64(u_cursor, dev), _as_f64(u_thread, dev),
+                T_max=T_max, P=cfg.P, n_ssd=cfg.n_ssd, n_cores=cfg.n_cores,
+                rho=dyn[2], L_dram=dyn[3], has_rho=flags["has_rho"],
+                has_io_clock=has_io_clock, has_arr=has_arr, has_lat=has_lat)
+            out.append(Cohort(
+                cols=cols, T_max=T_max, steps=steps, G=n_lat * nc, n_u=n_u,
+                stream_ids=stream_ids, substep=sub, state=state, kd=kd, se=se,
+                arr=arr, n_trace=ta.n_ops, L_mem_g=L_mem_g, nthr_g=nthr_g,
+                warm_g=warm_g, n_ops=int(n_ops), dyn=dyn, draws=draws))
     return out
 
 
@@ -711,7 +718,8 @@ def _run_cohorts(cohorts: Sequence[Cohort], *, substeps: int,
         for g0 in range(0, len(live), sk.MAX_COHORTS):
             ix = live[g0:g0 + sk.MAX_COHORTS]
             cs = [cohorts[i] for i in ix]
-            us = cohort_uniforms(cs, ck)
+            with obs.span("grid.feed"):
+                us = cohort_uniforms(cs, ck)
             if use_kernel:
                 # In place: the kernel overwrites the state planes, which
                 # saves a copy of the whole state per launch.
@@ -719,17 +727,19 @@ def _run_cohorts(cohorts: Sequence[Cohort], *, substeps: int,
                          for i, c in zip(ix, cs)]
                 c0 = cs[0]
                 for b in range(0, _RNG_CHUNK, substeps):
-                    sk.fused_steps_group(sub, parts, us[b:b + substeps],
-                                         c0.kd, c0.se, c0.arr, c0.n_trace,
-                                         c0.n_ops, c0.dyn)
+                    with obs.span("grid.launch"):
+                        sk.fused_steps_group(sub, parts, us[b:b + substeps],
+                                             c0.kd, c0.se, c0.arr,
+                                             c0.n_trace, c0.n_ops, c0.dyn)
                 continue
             off = 0
             for i, c in zip(ix, cs):
                 state = states[i]
-                for k in range(_RNG_CHUNK):
-                    state = sub(state, us[k, :, off:off + c.G], c.kd, c.se,
-                                c.arr, c.nthr_g, c.n_trace, c.L_mem_g,
-                                c.warm_g, c.n_ops, c.dyn)
+                with obs.span("grid.launch"):     # on the host: the plain step
+                    for k in range(_RNG_CHUNK):
+                        state = sub(state, us[k, :, off:off + c.G], c.kd,
+                                    c.se, c.arr, c.nthr_g, c.n_trace,
+                                    c.L_mem_g, c.warm_g, c.n_ops, c.dyn)
                 states[i] = state
                 off += c.G
         ck += 1
@@ -739,29 +749,31 @@ def _run_cohorts(cohorts: Sequence[Cohort], *, substeps: int,
         # Finished cells are inert (counters and t_start/t_end are latched),
         # so cutting the tail chunks cannot change any result.
         if early_exit and live and ck % _EXIT_CHECK_CHUNKS == 0:
-            latched = torch.stack([
-                (states[i][1][:, 3] >= cohorts[i].n_ops).all()
-                for i in live]).tolist()
+            with obs.span("grid.exit_read"):
+                latched = torch.stack([
+                    (states[i][1][:, 3] >= cohorts[i].n_ops).all()
+                    for i in live]).tolist()
             live = [i for i, done in zip(live, latched) if not done]
 
     outs = []
-    for c, state, n in zip(cohorts, states, chunks_run):
-        cf = state[0].cpu().numpy()
-        ci = state[1].cpu().numpy()
-        elapsed = np.maximum(cf[:, 4] - cf[:, 3], 1e-12)
-        out = dict(
-            throughput=np.float64(c.n_ops) / elapsed,
-            time=elapsed,
-            mem_stall_total=cf[:, 5],
-            mem_accesses=ci[:, 4],
-            counted=ci[:, 3],
-            steps_run=n * _RNG_CHUNK,
-        )
-        if sub.flags["has_lat"]:
-            out["lat_hist"] = state[-2].cpu().numpy()
-            out["lat_max"] = state[-1].cpu().numpy()
-            out["missed"] = ci[:, 6]
-        outs.append(out)
+    with obs.span("grid.readback"):
+        for c, state, n in zip(cohorts, states, chunks_run):
+            cf = state[0].cpu().numpy()
+            ci = state[1].cpu().numpy()
+            elapsed = np.maximum(cf[:, 4] - cf[:, 3], 1e-12)
+            out = dict(
+                throughput=np.float64(c.n_ops) / elapsed,
+                time=elapsed,
+                mem_stall_total=cf[:, 5],
+                mem_accesses=ci[:, 4],
+                counted=ci[:, 3],
+                steps_run=n * _RNG_CHUNK,
+            )
+            if sub.flags["has_lat"]:
+                out["lat_hist"] = state[-2].cpu().numpy()
+                out["lat_max"] = state[-1].cpu().numpy()
+                out["missed"] = ci[:, 6]
+            outs.append(out)
     return outs
 
 
@@ -909,13 +921,37 @@ def sweep_grid(
                              else int(host_devices))
     latencies = list(latencies)
     thread_candidates = list(thread_candidates)
-    cohorts = plan_grid(
-        cfg, trace, latencies, thread_candidates, n_ops, warmup_ops,
-        device=dev, bucket_threads=bucket_threads, arrivals=arrivals,
-        collect_percentiles=collect_percentiles, deadline=deadline,
-        draws=draws)
+    with obs.span("grid.plan"):
+        cohorts = plan_grid(
+            cfg, trace, latencies, thread_candidates, n_ops, warmup_ops,
+            device=dev, bucket_threads=bucket_threads, arrivals=arrivals,
+            collect_percentiles=collect_percentiles, deadline=deadline,
+            draws=draws)
+    run = dict(substeps=substeps, use_kernel=use_kernel,
+               early_exit=early_exit)
+    with obs.span("grid.run"):
+        if len(devices) > 1:
+            outs = _run_sharded(
+                cohorts, devices,
+                (lambda d: SplitMixDraws(cfg.seed, d)) if draws is None
+                else (lambda d: draws), **run)
+        else:
+            outs = _run_cohorts(cohorts, **run)
+    with obs.span("grid.reduce"):
+        grid = _gather(cohorts, outs, len(latencies), len(thread_candidates),
+                       n_ops, collect_percentiles)
+        del cohorts, outs      # the device state is freed inside the span
+    obs.count("grid.steps_bound", grid.cell_steps_bound)
+    obs.count("grid.steps_run", grid.cell_steps_run)
+    return grid
+
+
+def _gather(cohorts: Sequence[Cohort], outs: list[dict], n_lat: int,
+            n_cand: int, n_ops: int,
+            collect_percentiles: bool) -> GridResult:
+    """The cohorts' result planes scattered into the ``(n_lat, n_cand)``
+    grid, with each cell's percentiles from its histogram."""
     has_lat = bool(collect_percentiles)
-    n_lat, n_cand = len(latencies), len(thread_candidates)
 
     shape = (n_lat, n_cand)
     thr = np.empty(shape)
@@ -933,15 +969,6 @@ def sweep_grid(
     max_steps = 0
     steps_bound_cells = 0
     steps_run_cells = 0
-    run = dict(substeps=substeps, use_kernel=use_kernel,
-               early_exit=early_exit)
-    if len(devices) > 1:
-        outs = _run_sharded(
-            cohorts, devices,
-            (lambda d: SplitMixDraws(cfg.seed, d)) if draws is None
-            else (lambda d: draws), **run)
-    else:
-        outs = _run_cohorts(cohorts, **run)
     for c, out in zip(cohorts, outs):
         cols, steps, G, nc = c.cols, c.steps, c.G, len(c.cols)
         max_steps = max(max_steps, steps)

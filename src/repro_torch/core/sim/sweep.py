@@ -31,6 +31,7 @@ import time
 from dataclasses import dataclass, replace
 from typing import Callable, Iterable, Sequence
 
+from ... import obs
 from ..trace_ir import CompiledTrace, Op
 from .arrivals import ArrivalSpec, LatencySummary, generate_arrivals
 from .config import DEFAULT_THREAD_CANDIDATES, SimConfig, SimResult
@@ -159,10 +160,11 @@ def _run_torch_cells(cfg: SimConfig, trace: CompiledTrace, latencies,
     k = len(candidates)
     # numbers.Real admits numpy scalars too (np.float32 is not a float
     # subclass), keeping this classification consistent with sweep_grid's
-    need_lis = sorted({
-        i // k for i in todo
-        if isinstance(latencies[i // k], numbers.Real)
-    })
+    with obs.span("sweep.prepare"):
+        need_lis = sorted({
+            i // k for i in todo
+            if isinstance(latencies[i // k], numbers.Real)
+        })
     grid = None
     if need_lis:
         grid = replay_torch.sweep_grid(
@@ -171,15 +173,19 @@ def _run_torch_cells(cfg: SimConfig, trace: CompiledTrace, latencies,
             collect_percentiles=collect_percentiles, deadline=deadline,
             **(grid_opts or {}))
     row_of = {li: r for r, li in enumerate(need_lis)}
-    for i in todo:
-        li, ci = divmod(i, k)
-        if li in row_of:
-            results[i] = grid.result(row_of[li], ci)
-        else:
-            results[i] = simulate_compiled(
-                replace(cfg, L_mem=latencies[li], n_threads=candidates[ci]),
-                trace, n_ops, warmup_ops, arrivals=arrivals,
-                collect_percentiles=collect_percentiles, deadline=deadline)
+    with obs.span("sweep.assemble"):
+        for i in todo:
+            li, ci = divmod(i, k)
+            if li in row_of:
+                results[i] = grid.result(row_of[li], ci)
+            else:
+                results[i] = simulate_compiled(
+                    replace(cfg, L_mem=latencies[li],
+                            n_threads=candidates[ci]),
+                    trace, n_ops, warmup_ops, arrivals=arrivals,
+                    collect_percentiles=collect_percentiles,
+                    deadline=deadline)
+        del grid               # its planes are freed inside the span
 
 
 # -- on-disk cell cache ------------------------------------------------------
@@ -407,6 +413,7 @@ def _make_point(L, candidates: list[int],
     )
 
 
+@obs.rooted("sweep")
 def sweep_latency(
     cfg: SimConfig,
     source,
@@ -519,62 +526,65 @@ def sweep_latency(
 
     Returns one :class:`SweepPoint` per latency, in input order.
     """
-    if backend not in BACKENDS:
-        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
-    latencies = list(latencies)
-    candidates = list(thread_candidates)
-    if not latencies or not candidates:
-        return []
-    trace, src_fn = _coerce_trace(source)
-
-    if backend == "torch":
-        if adaptive:
+    with obs.span("sweep.prepare"):
+        if backend not in BACKENDS:
             raise ValueError(
-                "backend='torch' evaluates the whole grid in one call; the "
-                "warm-started adaptive search is a loop-backend strategy")
-        if collect_latency or cfg.collect_load_hist:
-            raise ValueError(
-                "per-op latency / load-histogram collection is only "
-                "available from backend='loop'")
-        if trace is None:
-            raise ValueError(
-                "backend='torch' replays compiled traces; pass a "
-                "CompiledTrace / TraceResult / list[Op], not a callable")
+                f"backend must be one of {BACKENDS}, got {backend!r}")
+        latencies = list(latencies)
+        candidates = list(thread_candidates)
+        if not latencies or not candidates:
+            return []
+        trace, src_fn = _coerce_trace(source)
 
-    arrival_spec: ArrivalSpec | None = None
-    if arrival is not None:
-        arrival_spec = (arrival if isinstance(arrival, ArrivalSpec)
-                        else ArrivalSpec.from_dict(arrival))
-    deadline = arrival_spec.deadline if arrival_spec is not None else 0.0
-    arrivals_arr = None
-    if arrival_spec is not None:
-        # One shared stream sized to the widest cell's demand
-        # (init threads + warmup + measured ops); every cell consumes its
-        # own prefix, so the stream length never changes cell values.
-        need = max(
-            cfg.n_cores * c
-            + (warmup_ops if warmup_ops is not None
-               else 2 * c * cfg.n_cores)
-            + n_ops
-            for c in candidates) + 1
-        arrivals_arr = generate_arrivals(arrival_spec, need)
-    arrival_key = arrival_spec.key() if arrival_spec is not None else None
+        if backend == "torch":
+            if adaptive:
+                raise ValueError(
+                    "backend='torch' evaluates the whole grid in one call; "
+                    "the warm-started adaptive search is a loop-backend "
+                    "strategy")
+            if collect_latency or cfg.collect_load_hist:
+                raise ValueError(
+                    "per-op latency / load-histogram collection is only "
+                    "available from backend='loop'")
+            if trace is None:
+                raise ValueError(
+                    "backend='torch' replays compiled traces; pass a "
+                    "CompiledTrace / TraceResult / list[Op], not a callable")
 
-    use_cache = (cache_dir is not None and trace is not None
-                 and not cfg.collect_load_hist and not collect_latency)
-    digest = ""
-    if use_cache:
-        os.makedirs(cache_dir, exist_ok=True)
-        digest = hashlib.sha1(
-            trace.kinds.tobytes() + trace.durs.tobytes() +
-            trace.bounds.tobytes()
-        ).hexdigest()
+        arrival_spec: ArrivalSpec | None = None
+        if arrival is not None:
+            arrival_spec = (arrival if isinstance(arrival, ArrivalSpec)
+                            else ArrivalSpec.from_dict(arrival))
+        deadline = arrival_spec.deadline if arrival_spec is not None else 0.0
+        arrivals_arr = None
+        if arrival_spec is not None:
+            # One shared stream sized to the widest cell's demand
+            # (init threads + warmup + measured ops); every cell consumes its
+            # own prefix, so the stream length never changes cell values.
+            need = max(
+                cfg.n_cores * c
+                + (warmup_ops if warmup_ops is not None
+                   else 2 * c * cfg.n_cores)
+                + n_ops
+                for c in candidates) + 1
+            arrivals_arr = generate_arrivals(arrival_spec, need)
+        arrival_key = arrival_spec.key() if arrival_spec is not None else None
 
-    def cell_path(c: SimConfig) -> str:
-        return os.path.join(
-            str(cache_dir),
-            _cache_key(c, digest, n_ops, warmup_ops, backend,
-                       arrival_key) + ".json")
+        use_cache = (cache_dir is not None and trace is not None
+                     and not cfg.collect_load_hist and not collect_latency)
+        digest = ""
+        if use_cache:
+            os.makedirs(cache_dir, exist_ok=True)
+            digest = hashlib.sha1(
+                trace.kinds.tobytes() + trace.durs.tobytes() +
+                trace.bounds.tobytes()
+            ).hexdigest()
+
+        def cell_path(c: SimConfig) -> str:
+            return os.path.join(
+                str(cache_dir),
+                _cache_key(c, digest, n_ops, warmup_ops, backend,
+                           arrival_key) + ".json")
 
     if adaptive:
         return _sweep_adaptive(cfg, trace, src_fn, latencies, candidates,
@@ -582,22 +592,23 @@ def sweep_latency(
                                use_cache, cell_path, arrivals_arr,
                                collect_percentiles, deadline)
 
-    grid_cfgs = [
-        replace(cfg, L_mem=L, n_threads=n)
-        for L in latencies
-        for n in candidates
-    ]
+    with obs.span("sweep.prepare"):
+        grid_cfgs = [
+            replace(cfg, L_mem=L, n_threads=n)
+            for L in latencies
+            for n in candidates
+        ]
 
-    # -- cache probe ---------------------------------------------------------
-    paths: list[str | None] = [None] * len(grid_cfgs)
-    results: list[SimResult | None] = [None] * len(grid_cfgs)
-    if use_cache:
-        for i, c in enumerate(grid_cfgs):
-            paths[i] = cell_path(c)
-            results[i] = _cache_load(paths[i],
-                                     need_summary=collect_percentiles)
+        # -- cache probe -----------------------------------------------------
+        paths: list[str | None] = [None] * len(grid_cfgs)
+        results: list[SimResult | None] = [None] * len(grid_cfgs)
+        if use_cache:
+            for i, c in enumerate(grid_cfgs):
+                paths[i] = cell_path(c)
+                results[i] = _cache_load(paths[i],
+                                         need_summary=collect_percentiles)
 
-    todo = [i for i, r in enumerate(results) if r is None]
+        todo = [i for i, r in enumerate(results) if r is None]
 
     # -- run missing cells ---------------------------------------------------
     if backend == "torch" and todo:
@@ -613,10 +624,10 @@ def sweep_latency(
             for i in todo:
                 _cache_store(paths[i], results[i])
         todo = []
-    if processes is None:
-        processes = min(os.cpu_count() or 1, len(todo) or 1)
-    ctx = _pick_context(trace, src_fn)
     if todo:
+        if processes is None:
+            processes = min(os.cpu_count() or 1, len(todo))
+        ctx = _pick_context(trace, src_fn)
         if processes > 1 and ctx is not None and len(todo) > 1:
             # Callable sources may carry mutable state (trace_source
             # closures); giving every cell a pristine fork of the parent
@@ -646,11 +657,12 @@ def sweep_latency(
 
     # -- reduce: best thread count per latency (first candidate wins ties) ---
     k = len(candidates)
-    return [
-        _make_point(L, candidates,
-                    dict(enumerate(results[li * k:(li + 1) * k])))
-        for li, L in enumerate(latencies)
-    ]
+    with obs.span("sweep.assemble"):
+        return [
+            _make_point(L, candidates,
+                        dict(enumerate(results[li * k:(li + 1) * k])))
+            for li, L in enumerate(latencies)
+        ]
 
 
 def _sweep_adaptive(cfg, trace, src_fn, latencies, candidates, n_ops,

@@ -209,6 +209,55 @@ def test_grid_kernel_path_bit_identical_to_plain_path(cuda, small_trace):
     assert np.array_equal(fused.throughput, cpu.throughput)
 
 
+def test_sweep_spans_on_the_device_trace_clock(cuda, small_trace, tmp_path):
+    """One small sweep profiled with CPU and CUDA activity: the runtime call
+    that launched each ``sched_step_kernel`` lies inside a ``grid.launch``
+    span of the export, so the spans share the device trace's clock.  A
+    session with CUDA activity alone records the same span tree."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+    from repro_torch.core.sim import sweep_latency
+
+    cfg = SimConfig(P=12, seed=7, n_ssd=2, R_io=250e3, L_switch=0.3 * US)
+
+    def sweep():
+        sweep_latency(cfg, small_trace, [1 * US, 5 * US], [4, 8, 20],
+                      n_ops=150, backend="torch", device=cuda)
+        torch.cuda.synchronize()
+
+    sweep()                                          # build, warm up
+    obs.clear()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        sweep()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+    spans = [e for e in events if e.get("cat") == "user_annotation"
+             and e["name"] == "grid.launch"]
+    calls = {e["args"]["correlation"]: e for e in events     # CUDA API
+             if e.get("cat", "").startswith("cuda_")
+             and "correlation" in e.get("args", {})}
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and "sched_step_kernel" in e["name"]]
+    (both,) = obs.frames()
+    assert kernels and len(spans) == len(kernels) == sum(
+        s.name == "grid.launch" for s in both.spans)
+    for k in kernels:
+        c = calls[k["args"]["correlation"]]
+        assert any(s["ts"] <= c["ts"] and c["ts"] + c["dur"]
+                   <= s["ts"] + s["dur"] for s in spans), c
+    obs.clear()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        sweep()
+    (cuda_only,) = obs.frames()
+    assert [s.name for s in cuda_only.spans] == [s.name for s in both.spans]
+    assert cuda_only.counters == both.counters
+    obs.clear()
+
+
 # -- the fleet and the corpus on the card --------------------------------------
 
 CORPUS = sorted((Path(__file__).resolve().parents[1] / "examples"
